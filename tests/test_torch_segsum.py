@@ -1,0 +1,97 @@
+"""PyTorch port: the update sums and the segment sum against the JAX package.
+
+The port's wrappers run their plain versions on the CPU; they must equal
+``fast_slic_tpu.pipeline.update_accumulate`` (arch xla) and the Pallas
+kernels ``slic_update_padded_pallas`` and ``segment_sum_pallas`` in
+interpret mode.  Exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from fast_slic_tpu import pipeline as jpipe
+from fast_slic_tpu.config import StaticConfig as JaxConfig
+from fast_slic_tpu.pallas.segsum_tpu import (segment_sum_pallas,
+                                             slic_update_padded_pallas)
+from fast_slic_tpu_torch.config import UNASSIGNED
+from fast_slic_tpu_torch.kernels.segsum import segment_sum, slic_update
+
+H, W, K = 70, 100, 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: beside the suite's workers and JAX's threads a
+    full torch pool oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _assignment(rng):
+    a = rng.integers(0, K, size=(H, W)).astype(np.int32)
+    a[rng.random((H, W)) < 0.07] = UNASSIGNED
+    planes = rng.integers(0, 256, size=(3, H, W)).astype(np.int32)
+    return a, planes
+
+
+@pytest.mark.parametrize("stride,rem", [(3, 0), (3, 1), (3, 2), (1, 0)])
+def test_update_matches_update_accumulate(rng, stride, rem):
+    a, planes = _assignment(rng)
+    cfg = JaxConfig(H=H, W=W, K=K, arch="xla")
+    ref = np.asarray(jpipe.update_accumulate(
+        jnp.asarray(planes), jnp.asarray(a), cfg, rem, stride))   # [K, 6]
+    got = slic_update(torch.from_numpy(a), torch.from_numpy(planes), K,
+                      stride, rem)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (6, K)
+    np.testing.assert_array_equal(got.numpy(), ref.T)
+
+
+@pytest.mark.parametrize("rem", [0, 2])
+def test_update_matches_padded_pallas_interpret(rng, rem):
+    stride = 3
+    a, planes = _assignment(rng)
+    # the TPU layout: rows rem::stride, padded to 64 rows and 128 lanes with
+    # junk that the kernel must ignore
+    Hs = -(-(H - rem) // stride)
+    Hsp, Wp = 64, 128
+    a_pad = rng.integers(0, K, size=(Hsp, Wp)).astype(np.int32)
+    a_pad[:Hs, :W] = a[rem::stride]
+    p_pad = rng.integers(0, 256, size=(3, Hsp, Wp)).astype(np.int32)
+    p_pad[:, :Hs, :W] = planes[:, rem::stride]
+    ref = np.asarray(slic_update_padded_pallas(
+        jnp.asarray(a_pad), jnp.asarray(p_pad), jnp.int32(rem), jnp.int32(0),
+        K, Wp, W, Hs, stride, True))
+    got = slic_update(torch.from_numpy(a), torch.from_numpy(planes), K,
+                      stride, rem)
+    np.testing.assert_array_equal(got.numpy(), ref[:, :K])
+
+
+@pytest.mark.parametrize("coherent", [True, False])
+def test_segment_sum_matches_pallas_interpret(rng, coherent):
+    N, V, S = 5000, 3, 300
+    ids = rng.integers(0, S + 1, size=N).astype(np.int32)
+    if coherent:  # CCA component ids grow with pixel position
+        ids = np.sort(ids)
+    vals = rng.integers(0, 1 << 16, size=(V, N)).astype(np.int32)
+    ref = np.asarray(segment_sum_pallas(jnp.asarray(ids), jnp.asarray(vals),
+                                        S, interpret=True))
+    got = segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), S)
+    assert tuple(got.shape) == (V, S + 1)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_segment_sum_values_beyond_16_bits(rng):
+    # the port has no 2^16 value limit (int32 atomics, no byte split)
+    N, S = 4000, 50
+    ids = rng.integers(0, S + 1, size=N).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, size=(2, N)).astype(np.int32)
+    ref = np.zeros((2, S + 1), np.int64)
+    for v in range(2):
+        np.add.at(ref[v], ids, vals[v])
+    got = segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), S)
+    np.testing.assert_array_equal(got.numpy(), ref)
