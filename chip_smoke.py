@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU and
-check it.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check
+them: the standard main path and the float-distance path (the real
+variants and LSC).
 
     python3 chip_smoke.py            # from the repository root, on a GPU
     python3 chip_smoke.py --profile  # also: torch.profiler over one frame
+                                     # of the standard and the LSC path
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
 1. the card: torch.cuda.is_available(), name and power limit (nvidia-smi);
 2. build: the CUDA kernels of fast_slic_tpu_torch/csrc, compiled by nvcc;
 3. kernels: each kernel against its plain PyTorch version, both on the
-   card, at the main path's shapes (1280x720, K=1600, S=24, 16 candidate
-   slots; assign and update at stride 3 with each remainder and stride 1;
-   CCA on a real raw assignment of the frame); bit-exact, with times;
-4. slice: SlicAvx2(num_components=1600, device="cuda") on four 1280x720
-   frames made from tests/data/golden_ref.npz; labels and clusters equal the
-   plain path (device="cpu") on the same frames, and every kernel of the
-   path was launched;
-5. golden: the six standard golden cases agree 1.0 with golden_ref.npz.
+   card, at the paths' shapes (1280x720, K=1600, S=24, 16 candidate slots;
+   assign, float assign (each variant) and update at stride 3 with each
+   remainder and stride 1; CCA on a real raw assignment of the frame; the
+   LSC features and the f32 segment sum on an LSC state of the frame);
+   bit-exact, except the f32 segment sum (within 1e-5 of each bin's sum of
+   absolute values: its float atomics add in a different order), with times;
+4. slice, standard path: SlicAvx2(num_components=1600, device="cuda") on
+   four 1280x720 frames made from tests/data/golden_ref.npz; labels and
+   clusters equal the plain path (device="cpu") on the same frames, and
+   every kernel of the path was launched;
+5. slice, float path: LSCAvx2 on two frames (labels agree >= 0.999 with the
+   plain path, clusters within 1 of it or 1 %), SlicRealDist,
+   SlicRealDistL2 and SlicRealDistNoQ on one frame each (labels and
+   clusters equal the plain path), and every kernel of the path was
+   launched;
+6. golden: the six standard and the three real-distance golden cases agree
+   1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
-The line before the last is {"kernels": [...]}; the last line is
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -41,6 +53,10 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
 
 # (K, StaticConfig flags, RuntimeParams overrides) as in tests/test_golden.py
 GOLDEN_CASES = {
+    "real_k256": (256, {"variant": "real"}, {}),
+    "l2_k256": (256, {"variant": "real_l2"}, {}),
+    "noq_k256": (256, {"variant": "real_noq"}, {}),
+    "lsc_k256": (256, {"variant": "lsc"}, {}),
     "std_k256_msf01": (256, {}, {}),
     "std_k256_msf0": (256, {}, {"min_size_factor": 0.0}),
     "std_k100_nolab": (100, {"convert_to_lab": False},
@@ -49,6 +65,13 @@ GOLDEN_CASES = {
     "std_k256_stride1": (256, {}, {"subsample_stride": 1}),
     "std_k256_comp20": (256, {}, {"compactness": 20.0}),
 }
+
+
+# the kernels each path must launch
+STANDARD_PATH = ("lab", "assign", "slic_update", "segment_sum",
+                 "connected_components", "lookup")
+FLOAT_PATH = ("lab", "lsc_feat", "assign_float", "slic_update", "fsegsum",
+              "segment_sum", "connected_components", "lookup")
 
 
 class SmokeFailure(RuntimeError):
@@ -126,11 +149,15 @@ def paired_times(kernel_fn, plain_fn, reps: int, plain_reps: int):
     return min(k1, k2), min(p1, p2)
 
 
-def max_abs_err(a, b) -> int:
+def max_abs_err(a, b):
     require(a.shape == b.shape and a.dtype == b.dtype,
             "shape/dtype differ: %s %s vs %s %s"
             % (tuple(a.shape), a.dtype, tuple(b.shape), b.dtype))
-    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    if not a.numel():
+        return 0
+    if a.is_floating_point():
+        return float((a.double() - b.double()).abs().max())
+    return int((a.long() - b.long()).abs().max())
 
 
 def kernel_phase(dev, frame, K: int, timed: bool):
@@ -147,12 +174,12 @@ def kernel_phase(dev, frame, K: int, timed: bool):
     scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
     res = {}
 
-    def record(name, err, ms=None, plain_ms=None):
+    def record(name, err, ms=None, plain_ms=None, ok=None):
         r = res.setdefault(name, {"max_abs_err": 0, "ms": None,
                                   "plain_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        require(err == 0, "%s disagrees with its plain version: max abs "
-                "err %d" % (name, err))
+        require(err == 0 if ok is None else ok, "%s disagrees with its "
+                "plain version: max abs err %r" % (name, err))
         if ms is not None:
             r["ms"], r["plain_ms"] = ms, plain_ms
 
@@ -167,8 +194,8 @@ def kernel_phase(dev, frame, K: int, timed: bool):
 
     # a mid-loop state: setup and three loop iterations through the kernels
     st = cl.initialize_clusters(frame, K).to_torch(dev)
-    planes, st = pipeline.stage_setup(image, st, cfg)
-    st, a0, _ = pipeline.stage_loop(planes, st, cfg, scal, 3, 3)
+    planes, st, lsc_state = pipeline.stage_setup(image, st, cfg, scal)
+    st, a0, _, _ = pipeline.stage_loop(planes, st, lsc_state, cfg, scal, 3, 3)
     st = pipeline._clamp_centers(st, cfg)
     cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
     table = pipeline.center_table(st)
@@ -232,14 +259,91 @@ def kernel_phase(dev, frame, K: int, timed: bool):
            *timing(lambda: segsum.segment_sum(ids, vals, n),
                    lambda: segsum.segment_sum_plain(ids, vals, n)))
     log("kernel phase: raw assignment has %d components" % int(ncomp))
+    float_kernel_phase(dev, image, K, record, timing)
     return res
 
 
+def float_kernel_phase(dev, image, K: int, record, timing):
+    """The float path's kernels vs their plain versions: the float assign
+    of each variant on a mid-loop state of that variant (setup and three
+    loop iterations through the kernels), and LSC's colour features and f32
+    segment sum on the LSC state."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    from fast_slic_tpu_torch.kernels import assign_float, fsegsum, lsc_feat
+
+    H, W = image.shape[:2]
+    frame = image.cpu().numpy()
+    for variant in ("real", "real_l2", "real_noq", "lsc"):
+        cfg = StaticConfig(H=H, W=W, K=K, variant=variant)
+        scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+        st = cl.initialize_clusters(frame, K).to_torch(dev)
+        planes, st, (feats, weights, cent) = pipeline.stage_setup(
+            image, st, cfg, scal)
+        st, a0, cent, _ = pipeline.stage_loop(
+            planes, st, (feats, weights, cent), cfg, scal, 3, 3)
+        st = pipeline._clamp_centers(st, cfg)
+        cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+        table = pipeline.center_table(st)
+        for stride, rem in ((3, 0), (3, 1), (3, 2), (1, 0)):
+            outs = []
+            for fn in (assign_float.assign_float, assign_float.plain):
+                a = a0.clone()
+                md = torch.full(a.shape, assign_float.F32_MAX, device=dev)
+                fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem,
+                   variant, True, md, feats, cent)
+                outs.append((a, md))
+            err = max(max_abs_err(outs[0][0], outs[1][0]),
+                      max_abs_err(outs[0][1], outs[1][1]))
+            t = (None, None)
+            if rem == 0:  # the pass is idempotent, so it is timed in place
+                a_k = outs[0][0]
+                t = timing(
+                    lambda: assign_float.assign_float(
+                        planes, table, cand, a_k, scal.coef, cfg.S, stride,
+                        rem, variant, True, None, feats, cent),
+                    lambda: assign_float.plain(
+                        planes, table, cand, a_k, scal.coef, cfg.S, stride,
+                        rem, variant, True, None, feats, cent))
+                if t[0] is not None:
+                    log("kernel assign_float %s at stride %d: kernel %.4f "
+                        "ms, plain %.4f ms" % ((variant, stride) + t))
+            # the JSON line carries LSC's stride-3 times (the path's
+            # heaviest variant); the log has every variant's
+            record("assign_float", err,
+                   *(t if (variant, stride) == ("lsc", 3) else (None, None)))
+
+    # the loop ended on lsc: planes, scal, feats, weights, a0 are its state
+    tabs = [torch.from_numpy(scal.lsc_tables[k]).to(dev)
+            for k in ("L_cos", "L_sin", "color_cos", "color_sin")]
+    record("lsc_feat", max_abs_err(lsc_feat.lsc_color_feats(planes, *tabs),
+                                   lsc_feat.plain(planes, *tabs)),
+           *timing(lambda: lsc_feat.lsc_color_feats(planes, *tabs),
+                   lambda: lsc_feat.plain(planes, *tabs)))
+
+    # the segment sum as after_update calls it at stride 3, rem 0
+    ok = a0[0::3] != 0xFFFF
+    ids = torch.where(ok, a0[0::3], K).reshape(-1).to(torch.int32)
+    mask = ok.reshape(-1).to(torch.int32)
+    vals = torch.cat([feats[:, 0::3], weights[None, 0::3]]).reshape(11, -1)
+    got = fsegsum.float_segsum(ids, mask, vals, K, 10)
+    ref = fsegsum.plain(ids, mask, vals, K, 10)
+    bound = 1e-5 * fsegsum.plain(ids, mask, vals.abs(), K, 10)
+    record("fsegsum", max_abs_err(got, ref),
+           *timing(lambda: fsegsum.float_segsum(ids, mask, vals, K, 10),
+                   lambda: fsegsum.plain(ids, mask, vals, K, 10)),
+           ok=bool(((got - ref).abs() <= bound).all()))
+    log("kernel phase: float path at N=%d segment-sum pixels, fsegsum max "
+        "abs err %r (bound: 1e-5 of each bin's sum of |w*f|, max %r)"
+        % (ids.numel(), max_abs_err(got, ref), float(bound.max())))
+
+
 def slice_phase(dev, frames, K: int):
-    """SlicAvx2 on the frames on ``dev`` and on the CPU (plain path); the
-    results must be equal.  Returns (launch counts of the device run, host
-    ms per frame, device ms per frame from the timing report, tie count,
-    last timing report)."""
+    """The standard path: SlicAvx2 on the frames on ``dev`` and on the CPU
+    (plain path); the results must be equal.  Returns (launch counts of the
+    device run, host ms per frame, device ms per frame from the timing
+    report, tie count, last timing report)."""
     from fast_slic_tpu_torch import SlicAvx2
     from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
 
@@ -272,6 +376,55 @@ def slice_phase(dev, frames, K: int):
     return counts, ms, dev_ms, ties, report
 
 
+def float_slice_phase(dev, frames, K: int):
+    """The float path: LSCAvx2 on two frames and SlicRealDist,
+    SlicRealDistL2 and SlicRealDistNoQ on one frame each, on ``dev`` and on
+    the CPU (plain path).  Returns the launch counts of the device runs."""
+    from fast_slic_tpu_torch import (LSCAvx2, SlicRealDist, SlicRealDistL2,
+                                     SlicRealDistNoQ)
+    from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
+
+    runs = [(LSCAvx2, frames[:2])] + [
+        (cls, frames[:1])
+        for cls in (SlicRealDist, SlicRealDistL2, SlicRealDistNoQ)]
+    results = []
+    reset_launches()
+    for cls, fs in runs:
+        slic = cls(num_components=K, device=dev)
+        for f in fs:
+            labels = slic.iterate(f)
+            report = json.loads(slic.slic_model.last_timing_report)
+            results.append((labels, slic.slic_model.to_yxmrgb(),
+                            report["duration"] / 1e3))
+    counts = launch_counts()
+
+    out = iter(results)
+    for cls, fs in runs:
+        plain = cls(num_components=K, device="cpu")
+        for i, f in enumerate(fs):
+            labels, yxmrgb, dev_ms = next(out)
+            ref = plain.iterate(f)
+            ref_yxm = plain.slic_model.to_yxmrgb()
+            agree = float((labels == ref).mean())
+            moved = int((yxmrgb != ref_yxm).any(axis=1).sum())
+            log("slice %s frame %d: %.3f ms (CUDA events over iterate), "
+                "label agreement with the plain path %r, clusters that "
+                "differ %d" % (cls.__name__, i + 1, dev_ms, agree, moved))
+            require(labels.shape == ref.shape and labels.min() >= 0,
+                    "%s frame %d: labels shape or range" % (cls.__name__, i))
+            if cls is LSCAvx2:
+                require(agree >= 0.999, "LSC frame %d: agreement %r"
+                        % (i, agree))
+                require(np.allclose(yxmrgb, ref_yxm, rtol=0.01, atol=1.0),
+                        "LSC frame %d: clusters differ from the plain path"
+                        % i)
+            else:
+                require(agree == 1.0 and np.array_equal(yxmrgb, ref_yxm),
+                        "%s: labels or clusters differ from the plain path"
+                        % cls.__name__)
+    return counts
+
+
 def golden_phase(dev):
     from fast_slic_tpu_torch import cluster as cl, runner
     from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
@@ -290,24 +443,27 @@ def golden_phase(dev):
         agree = float((res.labels.astype(np.int64) == g[name]).mean())
         ref = g[name + "_clusters"]
         st = res.clusters
+        log("golden %s: agreement %r, tie escalation %s"
+            % (name, agree, res.cca_tie))
+        if flags.get("variant") == "lsc":
+            require(agree >= 0.999, "golden %s: agreement %r" % (name, agree))
+            continue
         require(agree == 1.0, "golden %s: agreement %r" % (name, agree))
         require(np.array_equal(st.y, ref[:, 0])
                 and np.array_equal(st.x, ref[:, 1])
                 and np.array_equal(st.num_members.astype(np.float32),
                                    ref[:, 5]),
                 "golden %s: cluster y/x/num_members differ" % name)
-        log("golden %s: agreement %r, tie escalation %s"
-            % (name, agree, res.cca_tie))
 
 
-def profile_phase(dev, frames, K: int):
-    """torch.profiler over one steady-state frame of the main path: device
-    time by kernel and the device's busy share of the frame's wall time."""
+def profile_phase(dev, frames, K: int, cls):
+    """torch.profiler over one steady-state frame of ``cls`` (a path's
+    class): device time by kernel and the device's busy share of the
+    frame's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from fast_slic_tpu_torch import SlicAvx2
 
-    slic = SlicAvx2(num_components=K, device=dev)
+    slic = cls(num_components=K, device=dev)
     slic.iterate(frames[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -329,12 +485,13 @@ def profile_phase(dev, frames, K: int):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     require(busy > 0, "the profiler saw no device time")
-    log("profile: frame wall %.1f us, device busy %.1f us (%.1f%%), "
-        "idle %.1f%%" % (wall_us, busy, 100 * busy / wall_us,
+    name = cls.__name__
+    log("profile %s: frame wall %.1f us, device busy %.1f us (%.1f%%), "
+        "idle %.1f%%" % (name, wall_us, busy, 100 * busy / wall_us,
                          100 - 100 * busy / wall_us))
     for us, count, key in rows[:20]:
-        log("profile: %10.1f us %5d x %8.1f us  %s"
-            % (us, count, us / count, key[:90]))
+        log("profile %s: %10.1f us %5d x %8.1f us  %s"
+            % (name, us, count, us / count, key[:90]))
 
 
 def main() -> int:
@@ -358,29 +515,41 @@ def main() -> int:
     frames = make_frames(4, H720, W720)
     kres = kernel_phase(dev, frames[0], K720, timed=True)
     for name, r in kres.items():
-        log("kernel %s: exact, kernel %.4f ms, plain %.4f ms"
-            % (name, r["ms"], r["plain_ms"]))
+        log("kernel %s: max abs err %r, kernel %.4f ms, plain %.4f ms"
+            % (name, r["max_abs_err"], r["ms"], r["plain_ms"]))
 
     counts, ms, dev_ms, ties, report = slice_phase(dev, frames, K720)
-    log("slice: launches %s" % json.dumps(counts))
+    log("slice: standard path launches %s" % json.dumps(counts))
     log("slice: ms per frame, CUDA events over iterate: %s"
         % ", ".join("%.3f" % m for m in dev_ms))
     log("slice: ms per frame, host clock around SlicAvx2.iterate: %s"
         % ", ".join("%.3f" % m for m in ms))
     log("slice: tie escalations %d of %d frames" % (ties, len(frames)))
     log("slice: last frame phases (CUDA events, us) " + report)
-    missing = [k.name for k in KERNELS if counts[k.name] <= 0]
-    require(not missing, "kernels never launched on the main path: %s"
+    missing = [k for k in STANDARD_PATH if counts[k] <= 0]
+    require(not missing, "kernels never launched on the standard path: %s"
             % missing)
+
+    fcounts = float_slice_phase(dev, frames, K720)
+    log("slice: float path launches %s" % json.dumps(fcounts))
+    missing = [k for k in FLOAT_PATH if fcounts[k] <= 0]
+    require(not missing, "kernels never launched on the float path: %s"
+            % missing)
+    # each kernel's launches as counted on its path: the standard path's,
+    # or the float path's for the kernels only that path runs
+    launches = {k.name: counts[k.name] if k.name in STANDARD_PATH
+                else fcounts[k.name] for k in KERNELS}
 
     golden_phase(dev)
     if "--profile" in sys.argv[1:]:
-        profile_phase(dev, frames, K720)
+        from fast_slic_tpu_torch import LSCAvx2, SlicAvx2
+        for cls in (SlicAvx2, LSCAvx2):
+            profile_phase(dev, frames, K720, cls)
     require("jax" not in sys.modules, "the port imported jax")
 
     log(json.dumps({"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name],
+         "replaces": k.replaces, "launches": launches[k.name],
          "max_abs_err": kres[k.name]["max_abs_err"],
          "ms": kres[k.name]["ms"], "plain_ms": kres[k.name]["plain_ms"]}
         for k in KERNELS]}))

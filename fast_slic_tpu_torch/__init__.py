@@ -10,16 +10,24 @@ default) runs every per-pixel stage through a CUDA kernel of
 runs each kernel's plain PyTorch version.  The arch names ("standard",
 "x64/avx2", "arm/neon", "xla", "pallas") are accepted for API parity.
 
-Ported: the standard (quantized) variant with CIELAB conversion, the
-subsampled assign/update loop, the full assign and connectivity
-enforcement with its exact tie escalation.  The other variants,
-preemptive mode, debug/profile reports, batching and the graph utilities
-raise NotImplementedError naming their ROADMAP.md item.
+Ported: every distance variant (``Slic``; ``SlicRealDist``,
+``SlicRealDistL2``, ``SlicRealDistNoQ``, ``LSC``) with CIELAB conversion,
+the subsampled assign/update loop, the full assign and connectivity
+enforcement with its exact tie escalation.  Preemptive mode, debug/profile
+reports, batching and the graph utilities raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
-from .models.slic import BaseSlic, Slic  # noqa: F401
-from .avx2 import SlicAvx2  # noqa: F401
-from .neon import SlicNeon  # noqa: F401
+from .models.slic import (  # noqa: F401
+    BaseSlic,
+    Slic,
+    SlicRealDist,
+    SlicRealDistL2,
+    SlicRealDistNoQ,
+    LSC,
+)
+from .avx2 import LSCAvx2, SlicAvx2  # noqa: F401
+from .neon import LSCNeon, SlicNeon  # noqa: F401
 from .model import SlicModel  # noqa: F401
 from .config import get_supported_archs, is_supported_arch  # noqa: F401
 

@@ -73,6 +73,7 @@ class StaticConfig:
     variant: str = VARIANT_STANDARD
     convert_to_lab: bool = True
     manhattan_spatial_dist: bool = True
+    float_color: bool = True   # ContextRealDistNoQ.float_color (no-op; context.h:116)
     # Per-cell candidate list length (see pipeline.build_candidates); an
     # overflow is flagged and the runner re-runs with 3x the slots (max 48).
     cand_slots: int = 16
@@ -88,8 +89,6 @@ class StaticConfig:
     def __post_init__(self):
         if self.variant not in VARIANTS:
             raise RuntimeError("No such real_dist_type " + repr(self.variant))
-        if self.variant != VARIANT_STANDARD:
-            raise not_ported("variant %r" % self.variant, "§1.7 and §1.9")
         if self.cand_slots >= 128:
             raise ValueError("cand_slots must fit in 7 bits")
 

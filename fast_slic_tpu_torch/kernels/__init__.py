@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the main path, one wrapper module per family.
+"""Hand-written CUDA kernels of the ported paths, one wrapper module per
+family.
 
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); it counts its launches in a plain
@@ -11,8 +12,11 @@ from __future__ import annotations
 import collections
 
 from . import assign as _assign
+from . import assign_float as _assign_float
 from . import cca as _cca
+from . import fsegsum as _fsegsum
 from . import lab as _lab
+from . import lsc_feat as _lsc_feat
 from . import segsum as _segsum
 
 Kernel = collections.namedtuple(
@@ -37,6 +41,15 @@ KERNELS = (
     Kernel("lookup", _cca.lookup, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:300"),
+    Kernel("lsc_feat", _lsc_feat.lsc_color_feats, "cuda",
+           "fast_slic_tpu_torch/csrc/lsc_feat.cu",
+           "fast_slic_tpu/pallas/lut_tpu.py:321"),
+    Kernel("assign_float", _assign_float.assign_float, "cuda",
+           "fast_slic_tpu_torch/csrc/assign_float.cu",
+           "fast_slic_tpu/pallas/assign_tpu.py:255"),
+    Kernel("fsegsum", _fsegsum.float_segsum, "cuda",
+           "fast_slic_tpu_torch/csrc/fsegsum.cu",
+           "fast_slic_tpu/pallas/segsum_tpu.py:444"),
 )
 
 

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-All sources in ``fast_slic_tpu_torch/csrc/*.cu`` are compiled by one
-``nvcc`` call into ``build/fast_slic_tpu_torch/libfstt_kernels.so`` (beside
-the package, in the checkout) on first use, and loaded with ctypes.  The
+The sources in ``fast_slic_tpu_torch/csrc/*.cu`` are compiled on first use
+by one ``nvcc -c`` per source, all started together, and linked into
+``build/fast_slic_tpu_torch/libfstt_kernels.so`` (beside the package, in the
+checkout), which is loaded with ctypes.  The
 sources expose a plain C interface: every pointer and the CUDA stream are
 passed as ``c_void_p``, and every entry point returns ``cudaGetLastError()``
 so a refused launch raises in the wrapper.
@@ -30,7 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "fast_slic_tpu_torch"
 LIB_PATH = BUILD_DIR / "libfstt_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "fstt_segment_sum": [P, P, P, I, I, I, P],
     "fstt_cc": [P, P, I, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
+    "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,
+                          I, P],
+    "fstt_lsc_feat": [P, P, P, I, P],
+    "fstt_fsegsum": [P, P, P, P, I, I, I, I, P],
 }
 
 
@@ -67,13 +72,29 @@ def build(force: bool = False) -> float:
             and LIB_PATH.stat().st_mtime >= newest):
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / ("libfstt_kernels.%d.so" % os.getpid())
+    tag = "%d" % os.getpid()
+    tmp = BUILD_DIR / ("libfstt_kernels.%s.so" % tag)
+    objs = [BUILD_DIR / ("%s.%s.o" % (s.stem, tag)) for s in sources]
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-            proc.returncode, proc.stdout, proc.stderr))
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate()
+        outs.append((p.args, p.returncode, out, err))
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, rc, _, _ in outs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        outs = [(link, proc.returncode, proc.stdout, proc.stderr)]
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for args, rc, out, err in outs:
+        if rc != 0:
+            raise RuntimeError("nvcc failed (%d): %s\n%s\n%s" % (
+                rc, " ".join(args), out, err))
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 

@@ -14,11 +14,23 @@ import torch
 from . import cluster as cluster_lib
 from .config import (
     MAX_NUM_COMPONENTS,
+    VARIANT_LSC,
+    VARIANT_REAL,
+    VARIANT_REAL_L2,
+    VARIANT_REAL_NOQ,
+    VARIANT_STANDARD,
     RuntimeParams,
     StaticConfig,
     check_arch,
     not_ported,
 )
+
+_REAL_DIST_TO_VARIANT = {
+    "standard": VARIANT_REAL,
+    "l2": VARIANT_REAL_L2,
+    "noq": VARIANT_REAL_NOQ,
+    "lsc": VARIANT_LSC,
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -93,10 +105,17 @@ class SlicModel:
 
     # -- configuration -------------------------------------------------------
 
+    def _variant(self) -> str:
+        if not self.real_dist:
+            return VARIANT_STANDARD
+        try:
+            return _REAL_DIST_TO_VARIANT[self.real_dist_type]
+        except KeyError:
+            raise RuntimeError(
+                "No such real_dist_type " + repr(self.real_dist_type)
+            ) from None
+
     def _static_config(self, H: int, W: int) -> StaticConfig:
-        if self.real_dist:
-            raise not_ported("real_dist=True (variant %r)"
-                             % self.real_dist_type, "§1.7 and §1.9")
         if self.preemptive:
             raise not_ported("preemptive=True", "§1.8")
         if self.debug_mode:
@@ -105,8 +124,10 @@ class SlicModel:
             raise not_ported("profile=True", "§1.15")
         return StaticConfig(
             H=H, W=W, K=self.num_components,
+            variant=self._variant(),
             convert_to_lab=bool(self.convert_to_lab),
             manhattan_spatial_dist=bool(self.manhattan_spatial_dist),
+            float_color=bool(self.float_color),
         )
 
     # -- pipeline entry points ----------------------------------------------

@@ -1,5 +1,7 @@
 """User-facing SLIC classes with the reference constructor signature
-(``fast_slic/base_slic.py``) plus ``device``.
+(``fast_slic/base_slic.py``) plus ``device``: ``Slic`` and the
+float-distance variants ``SlicRealDist``, ``SlicRealDistL2``,
+``SlicRealDistNoQ`` and ``LSC``.
 
 ``device="cuda"`` (the default) runs the hand-written CUDA kernels and
 raises when there is no GPU; ``device="cpu"`` runs the plain PyTorch path.
@@ -77,3 +79,34 @@ class BaseSlic(object):
 
 class Slic(BaseSlic):
     arch_name = 'standard'
+
+
+class SlicRealDist(BaseSlic):
+    arch_name = 'standard'
+    real_dist_type = 'standard'
+
+    def make_slic_model(self, num_components, device="cuda"):
+        model = SlicModel(num_components, self.arch_name, device=device)
+        model.real_dist = True
+        model.real_dist_type = self.real_dist_type
+        return model
+
+
+class SlicRealDistL2(SlicRealDist):
+    arch_name = 'standard'
+    real_dist_type = 'l2'
+
+
+class SlicRealDistNoQ(SlicRealDist):
+    arch_name = 'standard'
+    real_dist_type = 'noq'
+
+    def __init__(self, *args, **kwargs):
+        float_color = kwargs.pop("float_color", True)
+        super(SlicRealDistNoQ, self).__init__(*args, **kwargs)
+        self._slic_model.float_color = float_color
+
+
+class LSC(SlicRealDist):
+    arch_name = 'standard'
+    real_dist_type = 'lsc'

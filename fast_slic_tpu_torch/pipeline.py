@@ -1,11 +1,11 @@
 """The SLIC pipeline in PyTorch: setup, the assign/update loop, the full
 assign and connectivity enforcement.
 
-The counterpart of ``fast_slic_tpu/pipeline.py`` for the standard
-(quantized) variant.  Plain tensor code stays torch; the per-pixel work goes
-through the kernel wrappers of :mod:`fast_slic_tpu_torch.kernels`, which
-take the plain PyTorch version on a CPU tensor and the CUDA kernel on a
-CUDA tensor.
+The counterpart of ``fast_slic_tpu/pipeline.py`` for every distance
+variant: standard (quantized), real, real_l2, real_noq and LSC.  Plain
+tensor code stays torch; the per-pixel work goes through the kernel
+wrappers of :mod:`fast_slic_tpu_torch.kernels`, which take the plain
+PyTorch version on a CPU tensor and the CUDA kernel on a CUDA tensor.
 
 The loop keeps ONE full-resolution int32 [H, W] assignment.  Iteration i
 writes only the rows r with r % stride == i % stride, and the update reads
@@ -24,10 +24,13 @@ import numpy as np
 import torch
 
 from .cluster import Clusters
-from .config import UNASSIGNED, StaticConfig
+from .config import (UNASSIGNED, VARIANT_LSC, VARIANT_REAL_NOQ,
+                     VARIANT_STANDARD, StaticConfig)
 from .kernels.assign import assign
+from .kernels.assign_float import assign_float
 from .kernels.lab import rgb_to_lab_planar
 from .kernels.segsum import slic_update
+from .ops import lsc as lsc_ops
 from .ops.cca import enforce_connectivity_flagged
 from .utils.timing import Timer
 
@@ -37,7 +40,8 @@ _PREEMPTIVE_COOLDOWN = 2  # preemptive.h:32
 class IterateOut(NamedTuple):
     labels: torch.Tensor          # int32 [H, W], -1 = unassigned
     clusters: Clusters            # final centroid state (tensors)
-    min_dists: torch.Tensor       # int32 [H, W], last full-assign distances
+    min_dists: torch.Tensor       # [H, W] last full-assign distances: int32
+                                  # (standard) or f32 (float variants)
     raw_assignment: torch.Tensor  # pre-CCA assignment (int32, 0xFFFF ok)
     cca_tie: torch.Tensor         # bool: top-K boundary tie, escalate
     cand_overflow: torch.Tensor   # bool: re-run with more cand_slots
@@ -49,7 +53,9 @@ class DerivedScalars(NamedTuple):
     reaches the assign kernel as this exact float32."""
 
     coef: np.float32       # spatial coefficient (context.cpp:24-25)
+    c_spatial: np.float32  # LSC C_color * compactness/100 (lsc.cpp:27-28)
     thres: np.int32        # CCA area threshold (context.cpp:16)
+    lsc_tables: object = None  # host-built trig LUTs (ops.lsc.trig_tables)
 
 
 def derive_scalars(cfg: StaticConfig, compactness,
@@ -58,9 +64,12 @@ def derive_scalars(cfg: StaticConfig, compactness,
     color_shift = 1 if cfg.convert_to_lab else 0
     c = np.float32(compactness)
     coef = (np.float32(1.0) / (np.float32(S) / c)) * np.float32(1 << color_shift)
+    c_spatial = np.float32(20.0) * (c / np.float32(100.0))
     # (int)round((double)(S*S) * (double)msf): half away from zero
     thres = np.int32(math.floor(float(S * S) * float(min_size_factor) + 0.5))
-    return DerivedScalars(coef, thres)
+    tables = (lsc_ops.trig_tables(cfg, compactness)
+              if cfg.variant == VARIANT_LSC else None)
+    return DerivedScalars(coef, c_spatial, thres, tables)
 
 
 def cell_grid_shape(cfg: StaticConfig):
@@ -145,12 +154,17 @@ def center_table(st: Clusters) -> torch.Tensor:
 
 def update_apply_means_rows(counts, sums, st: Clusters,
                             cfg: StaticConfig) -> Clusters:
-    """Centroid round_int means for updatable clusters from counts [K] and
-    sums [5, K] ordered (i, j, L, a, b) (context.cpp:356-387)."""
+    """Centroid means for updatable clusters from counts [K] and sums
+    [5, K] ordered (i, j, L, a, b): round_int means, or float division for
+    real_noq (context.cpp:356-387)."""
     upd = st.is_updatable != 0
     num_members = torch.where(upd, counts.to(torch.int64), st.num_members)
     safe = torch.clamp(counts, min=1)
-    means = ((sums + (safe // 2)[None, :]) // safe[None, :]).to(torch.float32)
+    if cfg.variant == VARIANT_REAL_NOQ:
+        means = sums.to(torch.float32) / safe[None, :].to(torch.float32)
+    else:
+        means = ((sums + (safe // 2)[None, :]) // safe[None, :]).to(
+            torch.float32)
     sel = upd & (counts > 0)
     return st.replace(
         y=torch.where(sel, means[0], st.y),
@@ -162,10 +176,13 @@ def update_apply_means_rows(counts, sums, st: Clusters,
     )
 
 
-def stage_setup(image, st: Clusters, cfg: StaticConfig):
-    """CIELAB conversion and the cluster colour re-seed
-    (context.cpp:114-157).  image: uint8 [H, W, 3] tensor.  Returns
-    (planes int32 [3, H, W], clusters)."""
+def stage_setup(image, st: Clusters, cfg: StaticConfig,
+                scalars: DerivedScalars):
+    """CIELAB conversion, the cluster colour re-seed and, for LSC, the
+    feature build (context.cpp:114-157).  image: uint8 [H, W, 3] tensor.
+    Returns (planes int32 [3, H, W], clusters, LSC state (feats f32
+    [10, H, W], weights f32 [H, W], centroids f32 [K, 10]) or three
+    Nones)."""
     H, W, K = cfg.H, cfg.W, cfg.K
     if cfg.convert_to_lab:
         planes = rgb_to_lab_planar(image)
@@ -180,14 +197,34 @@ def stage_setup(image, st: Clusters, cfg: StaticConfig):
                     is_updatable=torch.full((K,), _PREEMPTIVE_COOLDOWN,
                                             dtype=torch.int32,
                                             device=planes.device))
-    return planes, st
+    lsc_state = (None, None, None)
+    if cfg.variant == VARIANT_LSC:
+        feats, weights = lsc_ops.features(planes, cfg, scalars.lsc_tables)
+        lsc_state = (feats, weights, lsc_ops.seed_centroids(feats, st, cfg))
+    return planes, st, lsc_state
 
 
-def stage_loop(planes, st: Clusters, cfg: StaticConfig,
+def assign_pass(planes, st: Clusters, cand, assignment, cfg: StaticConfig,
+                scalars: DerivedScalars, stride: int, rem: int,
+                min_dists=None, feats=None, cent=None):
+    """One assign pass, in place: the quantized kernel for the standard
+    variant, the float kernel for the others (assign_xla's two branches)."""
+    table = center_table(st)
+    if cfg.variant == VARIANT_STANDARD:
+        return assign(planes, table, cand, assignment, scalars.coef, cfg.S,
+                      stride, rem, cfg.manhattan_spatial_dist, min_dists)
+    return assign_float(planes, table, cand, assignment, scalars.coef, cfg.S,
+                        stride, rem, cfg.variant, cfg.manhattan_spatial_dist,
+                        min_dists, feats, cent)
+
+
+def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
                scalars: DerivedScalars, max_iter: int, stride: int):
     """max_iter x (assign, update) with row subsampling and a rotating
-    remainder (context.cpp:158-175).  Returns (clusters, assignment,
-    candidate overflow flag)."""
+    remainder (context.cpp:158-175); LSC re-centres its feature centroids
+    after each update.  Returns (clusters, assignment, LSC centroids or
+    None, candidate overflow flag)."""
+    feats, weights, cent = lsc_state
     dev = planes.device
     assignment = torch.full((cfg.H, cfg.W), UNASSIGNED, dtype=torch.int32,
                             device=dev)
@@ -197,25 +234,31 @@ def stage_loop(planes, st: Clusters, cfg: StaticConfig,
         st = _clamp_centers(st, cfg)
         cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
         overflow = overflow | cov
-        assign(planes, center_table(st), cand, assignment, scalars.coef,
-               cfg.S, stride, rem, cfg.manhattan_spatial_dist)
+        assign_pass(planes, st, cand, assignment, cfg, scalars, stride, rem,
+                    feats=feats, cent=cent)
         # per-cluster (count, i, j, L, a, b) over the rows just assigned
         acc = slic_update(assignment, planes, cfg.K, stride, rem)
         st = update_apply_means_rows(acc[0], acc[1:], st, cfg)
-    return st, assignment, overflow
+        if cfg.variant == VARIANT_LSC:
+            cent = lsc_ops.after_update(feats, weights, st, cent, cfg, rem,
+                                        stride, assignment)
+    return st, assignment, cent, overflow
 
 
-def stage_full_assign(planes, st: Clusters, assignment, cfg: StaticConfig,
-                      scalars: DerivedScalars):
+def stage_full_assign(planes, st: Clusters, lsc_state, cent, assignment,
+                      cfg: StaticConfig, scalars: DerivedScalars):
     """Preemptive finalize and full_assign at stride 1
     (context.cpp:176-181).  Updates ``assignment`` in place; returns
     (clusters, assignment, min_dists, candidate overflow flag)."""
     st = st.replace(is_active=torch.ones_like(st.is_active))
     st = _clamp_centers(st, cfg)
     cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
-    min_dists = torch.empty_like(assignment)
-    assign(planes, center_table(st), cand, assignment, scalars.coef, cfg.S,
-           1, 0, cfg.manhattan_spatial_dist, min_dists=min_dists)
+    dtype = (torch.int32 if cfg.variant == VARIANT_STANDARD
+             else torch.float32)
+    min_dists = torch.empty(assignment.shape, dtype=dtype,
+                            device=assignment.device)
+    assign_pass(planes, st, cand, assignment, cfg, scalars, 1, 0, min_dists,
+                lsc_state[0], cent)
     return st, assignment, min_dists, cov
 
 
@@ -235,13 +278,13 @@ def iterate_graph(image, st: Clusters, cfg: StaticConfig,
     (utils.timing.Timer) gets one section per phase when given."""
     timer = timer or Timer(None)
     with timer.scope("cielab_conversion"):
-        planes, st = stage_setup(image, st, cfg)
+        planes, st, lsc_state = stage_setup(image, st, cfg, scalars)
     with timer.scope("iteration_loop"):
-        st, assignment, overflow = stage_loop(planes, st, cfg, scalars,
-                                              max_iter, stride)
+        st, assignment, cent, overflow = stage_loop(
+            planes, st, lsc_state, cfg, scalars, max_iter, stride)
     with timer.scope("full_assign"):
         st, assignment, min_dists, cov = stage_full_assign(
-            planes, st, assignment, cfg, scalars)
+            planes, st, lsc_state, cent, assignment, cfg, scalars)
     with timer.scope("enforce_connectivity"):
         labels, cca_tie = stage_cca(assignment, cfg, scalars)
     return IterateOut(labels, st, min_dists, assignment, cca_tie,

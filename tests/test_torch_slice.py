@@ -174,15 +174,15 @@ def test_constructor_contracts():
         assert cls(num_components=9, device="cpu").num_components == 9
     for arch in ("standard", "x64/avx2", "arm/neon", "xla", "pallas"):
         SlicModel(4, arch, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StaticConfig(H=8, W=8, K=4, variant="lsc")
+    for variant in ("standard", "real", "real_l2", "real_noq", "lsc"):
+        assert StaticConfig(H=8, W=8, K=4, variant=variant).variant == variant
     with pytest.raises(RuntimeError):
         StaticConfig(H=8, W=8, K=4, variant="bogus")
 
 
 def test_paths_outside_the_slice_raise(image_factory):
     image = image_factory(32, 32)
-    for attr in ("real_dist", "preemptive", "debug_mode", "profile"):
+    for attr in ("preemptive", "debug_mode", "profile"):
         m = SlicModel(4, device="cpu")
         m.initialize(image)
         setattr(m, attr, True)
