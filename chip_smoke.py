@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check
-them: the standard main path and the float-distance path (the real
-variants and LSC).
+them: the standard main path, the float-distance path (the real variants
+and LSC), the preemptive grid and batched frames (BatchedSlic).
 
     python3 chip_smoke.py            # from the repository root, on a GPU
     python3 chip_smoke.py --profile  # also: torch.profiler over one frame
-                                     # of the standard and the LSC path
+                                     # of the standard, the LSC and the
+                                     # preemptive path and one stacked
+                                     # batch of four frames
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -15,24 +17,39 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card, at the paths' shapes (1280x720, K=1600, S=24, 16 candidate slots;
    assign, float assign (each variant) and update at stride 3 with each
    remainder and stride 1; CCA on a real raw assignment of the frame; the
-   LSC features and the f32 segment sum on an LSC state of the frame);
-   bit-exact, except the f32 segment sum (within 1e-5 of each bin's sum of
-   absolute values: its float atomics add in a different order), with times;
+   LSC features and the f32 segment sum on an LSC state of the frame; on
+   four stacked frames after nine preemptive iterations, where some cells
+   are inactive: assign, float assign and update with the frame axis, the
+   masked update with that pixel mask at B=4 and B=1, and the per-frame
+   segment sum on the CCA values of the four frames); bit-exact (the f32
+   segment sum against its plain version on the CPU, whose order of
+   addition it keeps; on the card index_add_ adds with float atomics), with
+   times, each kernel's
+   bound (the bytes it must move over 3.35 TB/s or its operations over
+   67 TFLOP/s, the larger) and, where one PyTorch call computes the same
+   function, that call's time;
 4. slice, standard path: SlicAvx2(num_components=1600, device="cuda") on
    four 1280x720 frames made from tests/data/golden_ref.npz; labels and
-   clusters equal the plain path (device="cpu") on the same frames, and
-   every kernel of the path was launched;
+   clusters equal the plain path (device="cpu") on the same frames;
 5. slice, float path: LSCAvx2 on two frames (labels agree >= 0.999 with the
    plain path, clusters within 1 of it or 1 %), SlicRealDist,
    SlicRealDistL2 and SlicRealDistNoQ on one frame each (labels and
-   clusters equal the plain path), and every kernel of the path was
-   launched;
-6. golden: the six standard and the three real-distance golden cases agree
-   1.0 with golden_ref.npz, lsc_k256 >= 0.999.
+   clusters equal the plain path); the plain path runs each frame from the
+   device model's state before it;
+6. slice, preemptive grid: SlicAvx2(preemptive=True) on the four frames
+   and LSCAvx2(preemptive=True) on one, against the plain path as above;
+7. batch: BatchedSlic(num_components=1600) on two batches of four frames
+   in stack and in map mode (labels and clusters equal across stack, map
+   and four SlicAvx2 models on the card), one stacked batch of two frames
+   against the plain path, and one stacked batch with preemptive=True and
+   one with variant="real_noq" against map mode;
+8. golden: the seven standard and the three real-distance golden cases
+   agree 1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after.  The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+after; every kernel of the path must have been launched.  The line before
+the last is {"kernels": [...]}; the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +67,13 @@ sys.path.insert(0, ROOT)
 
 H720, W720, K720 = 720, 1280, 1600
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
+BATCH = 4
+
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
+# outside the tensor cores (the integer ops of these kernels are counted at the
+# same rate)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 # (K, StaticConfig flags, RuntimeParams overrides) as in tests/test_golden.py
 GOLDEN_CASES = {
@@ -64,6 +88,8 @@ GOLDEN_CASES = {
     "std_k256_euclid": (256, {"manhattan_spatial_dist": False}, {}),
     "std_k256_stride1": (256, {}, {"subsample_stride": 1}),
     "std_k256_comp20": (256, {}, {"compactness": 20.0}),
+    "std_k256_preempt": (256, {"preemptive": True},
+                         {"preemptive_thres": 0.05}),
 }
 
 
@@ -72,6 +98,17 @@ STANDARD_PATH = ("lab", "assign", "slic_update", "segment_sum",
                  "connected_components", "lookup")
 FLOAT_PATH = ("lab", "lsc_feat", "assign_float", "slic_update", "fsegsum",
               "segment_sum", "connected_components", "lookup")
+PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
+                   "slic_update_masked", "fsegsum", "segment_sum",
+                   "connected_components", "lookup")
+BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
+              "slic_update_masked", "framed_segment_sum",
+              "connected_components", "lookup")
+# the path whose run gives each kernel's launch count in the JSON line
+COUNTED_ON = dict(
+    [(k, "standard") for k in STANDARD_PATH]
+    + [(k, "float") for k in ("lsc_feat", "assign_float", "fsegsum")]
+    + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch")])
 
 
 class SmokeFailure(RuntimeError):
@@ -149,6 +186,16 @@ def paired_times(kernel_fn, plain_fn, reps: int, plain_reps: int):
     return min(k1, k2), min(p1, p2)
 
 
+def bound(moved: float, ops: float):
+    """The least time the card could take: the bytes the call must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the scalar rate, the larger; in ms, with which
+    of the two bounds it."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def max_abs_err(a, b):
     require(a.shape == b.shape and a.dtype == b.dtype,
             "shape/dtype differ: %s %s vs %s %s"
@@ -160,37 +207,90 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max())
 
 
-def kernel_phase(dev, frame, K: int, timed: bool):
-    """Each kernel vs its plain version on ``dev`` at the frame's shapes.
-    Returns {name: {"max_abs_err", "ms", "plain_ms"}}."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cand_visits(cand, H: int, W: int, S: int, stride: int, rem: int) -> int:
+    """Candidate slots the assign kernels visit on the rows i % stride ==
+    rem: each pixel walks its cell's list up to the first empty slot."""
+    import torch
+    filled = (cand >= 0).sum(-1)                       # [..., GH, GW]
+    GH, GW = filled.shape[-2:]
+    ci = torch.clamp(torch.arange(rem, H, stride, device=cand.device) // S,
+                     max=GH - 1)
+    cj = torch.clamp(torch.arange(W, device=cand.device) // S, max=GW - 1)
+    return int(filled[..., ci, :][..., cj].sum())
+
+
+# operations counted per unit of work for the bound (a lower count: the
+# arithmetic of the kernel's inner statement, not its index math)
+OPS_PER_VISIT = {"standard": 12, "real": 14, "real_l2": 16, "real_noq": 22,
+                 "lsc": 30}
+
+
+class Results:
+    """Each kernel's row of the JSON line: its largest error against the
+    plain version and, for the call that represents it, its time, the
+    plain version's, the library call's and the bound."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def check(self, name, err):
+        r = self.rows.setdefault(name, {
+            "max_abs_err": 0, "ms": None, "plain_ms": None, "bound_ms": None,
+            "bound_by": None, "library_ms": None})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        require(err == 0, "%s disagrees with its plain version: max abs err "
+                "%r" % (name, err))
+
+    def time(self, name, kernel_fn, plain_fn, moved, ops, library_fn=None,
+             reps=50, plain_reps=5):
+        ms, plain_ms = paired_times(kernel_fn, plain_fn, reps, plain_reps)
+        b_ms, b_by = bound(moved, ops)
+        self.rows[name].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(library_fn, reps) if library_fn else None)
+
+    def log(self):
+        for name, r in self.rows.items():
+            log("kernel %s: max abs err %r, kernel %.4f ms, plain %.4f ms, "
+                "bound %.4f ms (%s), library %s ms"
+                % (name, r["max_abs_err"], r["ms"], r["plain_ms"],
+                   r["bound_ms"], r["bound_by"], r["library_ms"]))
+
+
+def log_times(what, kernel_fn, plain_fn, moved, ops):
+    """Time a kernel call that is not its JSON row's (another stride, the
+    frame axis) and log it beside its bound."""
+    ms, plain_ms = paired_times(kernel_fn, plain_fn, 50, 5)
+    b_ms, b_by = bound(moved, ops)
+    log("kernel %s: kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
+        % (what, ms, plain_ms, b_ms, b_by))
+
+
+def kernel_phase(dev, frame, K: int, res: Results):
+    """Each kernel of the standard and float paths vs its plain version on
+    ``dev`` at the frame's shapes."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
     from fast_slic_tpu_torch.kernels import assign, cca, lab, segsum
     from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
+    from fast_slic_tpu_torch.ops.cielab import lab_tables
 
     H, W = frame.shape[:2]
+    n = H * W
     cfg = StaticConfig(H=H, W=W, K=K)
     scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
-    res = {}
-
-    def record(name, err, ms=None, plain_ms=None, ok=None):
-        r = res.setdefault(name, {"max_abs_err": 0, "ms": None,
-                                  "plain_ms": None})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        require(err == 0 if ok is None else ok, "%s disagrees with its "
-                "plain version: max abs err %r" % (name, err))
-        if ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-
-    def timing(kernel_fn, plain_fn, reps=50, plain_reps=5):
-        return paired_times(kernel_fn, plain_fn, reps, plain_reps) \
-            if timed else (None, None)
 
     image = torch.from_numpy(frame).to(dev)
-    record("lab", max_abs_err(lab.rgb_to_lab_planar(image), lab.plain(image)),
-           *timing(lambda: lab.rgb_to_lab_planar(image),
-                   lambda: lab.plain(image)))
+    res.check("lab", max_abs_err(lab.rgb_to_lab_planar(image),
+                                 lab.plain(image)))
+    res.time("lab", lambda: lab.rgb_to_lab_planar(image),
+             lambda: lab.plain(image),
+             15 * n + nbytes(*lab_tables(dev)), 30 * n)
 
     # a mid-loop state: setup and three loop iterations through the kernels
     st = cl.initialize_clusters(frame, K).to_torch(dev)
@@ -209,61 +309,70 @@ def kernel_phase(dev, frame, K: int, timed: bool):
             fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem,
                True, min_dists=md)
             outs.append((a, md))
-        err = max(max_abs_err(outs[0][0], outs[1][0]),
-                  max_abs_err(outs[0][1], outs[1][1]))
+        res.check("assign", max(max_abs_err(outs[0][0], outs[1][0]),
+                                max_abs_err(outs[0][1], outs[1][1])))
         a_k = outs[0][0]
-        t = (None, None)
+        P = len(range(rem, H, stride)) * W
         if rem == 0:  # the pass is idempotent, so it is timed in place
-            t = timing(
-                lambda: assign.assign(planes, table, cand, a_k, scal.coef,
-                                      cfg.S, stride, rem, True),
-                lambda: assign.plain(planes, table, cand, a_k, scal.coef,
-                                     cfg.S, stride, rem, True))
-        if stride == 1 and timed:
-            log("kernel assign at stride 1: kernel %.4f ms, plain %.4f ms"
-                % t)
-            t = (None, None)
-        record("assign", err, *t)
+            args = (lambda: assign.assign(planes, table, cand, a_k,
+                                          scal.coef, cfg.S, stride, rem,
+                                          True),
+                    lambda: assign.plain(planes, table, cand, a_k, scal.coef,
+                                         cfg.S, stride, rem, True),
+                    16 * P + nbytes(cand, table),
+                    OPS_PER_VISIT["standard"]
+                    * cand_visits(cand, H, W, cfg.S, stride, rem))
+            if stride == 3:
+                res.time("assign", *args)
+            else:
+                log_times("assign at stride 1", *args)
         upd_k = segsum.slic_update(a_k, planes, K, stride, rem)
         upd_p = segsum.slic_update_plain(a_k, planes, K, stride, rem)
-        record("slic_update", max_abs_err(upd_k, upd_p),
-               *(timing(lambda: segsum.slic_update(a_k, planes, K, stride,
-                                                   rem),
-                        lambda: segsum.slic_update_plain(a_k, planes, K,
-                                                         stride, rem))
-                 if (stride, rem) == (3, 0) else (None, None)))
+        res.check("slic_update", max_abs_err(upd_k, upd_p))
+        if (stride, rem) == (3, 0):
+            res.time("slic_update",
+                     lambda: segsum.slic_update(a_k, planes, K, stride, rem),
+                     lambda: segsum.slic_update_plain(a_k, planes, K, stride,
+                                                      rem),
+                     16 * P + 24 * K, 6 * P)
 
     # CCA kernels on a real raw assignment of the frame
     out = pipeline.iterate_graph(
         image, cl.initialize_clusters(frame, K).to_torch(dev), cfg, scal,
         10, 3)
     raw = out.raw_assignment
-    L_k = cca.connected_components(raw)
-    L_p = cca.connected_components_plain(raw)
-    record("connected_components", max_abs_err(L_k, L_p),
-           *timing(lambda: cca.connected_components(raw),
-                   lambda: cca.connected_components_plain(raw),
-                   plain_reps=2))
-    L = L_p.reshape(-1)
+    res.check("connected_components",
+              max_abs_err(cca.connected_components(raw),
+                          cca.connected_components_plain(raw)))
+    res.time("connected_components", lambda: cca.connected_components(raw),
+             lambda: cca.connected_components_plain(raw), 8 * n, 10 * n,
+             plain_reps=2)
+    L = cca.connected_components_plain(raw).reshape(-1)
     is_leader, rank, ncomp = leader_ranks(L)
-    record("lookup", max_abs_err(cca.lookup(L, rank),
-                                 cca.lookup_plain(L, rank)),
-           *timing(lambda: cca.lookup(L, rank),
-                   lambda: cca.lookup_plain(L, rank)))
+    L_long = L.long()
+    res.check("lookup", max_abs_err(cca.lookup(L, rank),
+                                    cca.lookup_plain(L, rank)))
+    res.time("lookup", lambda: cca.lookup(L, rank),
+             lambda: cca.lookup_plain(L, rank), 8 * n + nbytes(rank), n,
+             library_fn=lambda: rank[L_long])
     comp2 = cca.lookup_plain(L, rank).reshape(H, W)
     vals = segsum_values(comp2, is_leader).contiguous()
     ids = comp2.reshape(-1)
-    n = H * W
-    record("segment_sum", max_abs_err(segsum.segment_sum(ids, vals, n),
-                                      segsum.segment_sum_plain(ids, vals, n)),
-           *timing(lambda: segsum.segment_sum(ids, vals, n),
-                   lambda: segsum.segment_sum_plain(ids, vals, n)))
+    ids_long = ids.long()
+    res.check("segment_sum",
+              max_abs_err(segsum.segment_sum(ids, vals, n),
+                          segsum.segment_sum_plain(ids, vals, n)))
+    res.time("segment_sum", lambda: segsum.segment_sum(ids, vals, n),
+             lambda: segsum.segment_sum_plain(ids, vals, n),
+             nbytes(ids, vals) + 8 * (n + 1), 2 * n,
+             library_fn=lambda: torch.zeros(
+                 (2, n + 1), dtype=torch.int32, device=dev).index_add_(
+                     1, ids_long, vals))
     log("kernel phase: raw assignment has %d components" % int(ncomp))
-    float_kernel_phase(dev, image, K, record, timing)
-    return res
+    float_kernel_phase(dev, image, K, res)
 
 
-def float_kernel_phase(dev, image, K: int, record, timing):
+def float_kernel_phase(dev, image, K: int, res: Results):
     """The float path's kernels vs their plain versions: the float assign
     of each variant on a mid-loop state of that variant (setup and three
     loop iterations through the kernels), and LSC's colour features and f32
@@ -274,6 +383,7 @@ def float_kernel_phase(dev, image, K: int, record, timing):
     from fast_slic_tpu_torch.kernels import assign_float, fsegsum, lsc_feat
 
     H, W = image.shape[:2]
+    n = H * W
     frame = image.cpu().numpy()
     for variant in ("real", "real_l2", "real_noq", "lsc"):
         cfg = StaticConfig(H=H, W=W, K=K, variant=variant)
@@ -294,62 +404,207 @@ def float_kernel_phase(dev, image, K: int, record, timing):
                 fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem,
                    variant, True, md, feats, cent)
                 outs.append((a, md))
-            err = max(max_abs_err(outs[0][0], outs[1][0]),
-                      max_abs_err(outs[0][1], outs[1][1]))
-            t = (None, None)
-            if rem == 0:  # the pass is idempotent, so it is timed in place
-                a_k = outs[0][0]
-                t = timing(
-                    lambda: assign_float.assign_float(
+            res.check("assign_float",
+                      max(max_abs_err(outs[0][0], outs[1][0]),
+                          max_abs_err(outs[0][1], outs[1][1])))
+            if rem:
+                continue
+            # the pass is idempotent, so it is timed in place; the JSON
+            # line carries LSC's stride-3 times (the path's heaviest
+            # variant), the log every variant's
+            a_k = outs[0][0]
+            P = len(range(rem, H, stride)) * W
+            per_px = 44 if variant == "lsc" else 16
+            args = (lambda: assign_float.assign_float(
                         planes, table, cand, a_k, scal.coef, cfg.S, stride,
                         rem, variant, True, None, feats, cent),
                     lambda: assign_float.plain(
                         planes, table, cand, a_k, scal.coef, cfg.S, stride,
-                        rem, variant, True, None, feats, cent))
-                if t[0] is not None:
-                    log("kernel assign_float %s at stride %d: kernel %.4f "
-                        "ms, plain %.4f ms" % ((variant, stride) + t))
-            # the JSON line carries LSC's stride-3 times (the path's
-            # heaviest variant); the log has every variant's
-            record("assign_float", err,
-                   *(t if (variant, stride) == ("lsc", 3) else (None, None)))
+                        rem, variant, True, None, feats, cent),
+                    per_px * P + nbytes(cand, table)
+                    + (nbytes(cent) if variant == "lsc" else 0),
+                    OPS_PER_VISIT[variant]
+                    * cand_visits(cand, H, W, cfg.S, stride, rem))
+            if (variant, stride) == ("lsc", 3):
+                res.time("assign_float", *args)
+            else:
+                log_times("assign_float %s at stride %d" % (variant, stride),
+                          *args)
 
     # the loop ended on lsc: planes, scal, feats, weights, a0 are its state
     tabs = [torch.from_numpy(scal.lsc_tables[k]).to(dev)
             for k in ("L_cos", "L_sin", "color_cos", "color_sin")]
-    record("lsc_feat", max_abs_err(lsc_feat.lsc_color_feats(planes, *tabs),
-                                   lsc_feat.plain(planes, *tabs)),
-           *timing(lambda: lsc_feat.lsc_color_feats(planes, *tabs),
-                   lambda: lsc_feat.plain(planes, *tabs)))
+    res.check("lsc_feat", max_abs_err(lsc_feat.lsc_color_feats(planes, *tabs),
+                                      lsc_feat.plain(planes, *tabs)))
+    res.time("lsc_feat", lambda: lsc_feat.lsc_color_feats(planes, *tabs),
+             lambda: lsc_feat.plain(planes, *tabs),
+             36 * n + nbytes(*tabs), 6 * n)
 
     # the segment sum as after_update calls it at stride 3, rem 0
     ok = a0[0::3] != 0xFFFF
     ids = torch.where(ok, a0[0::3], K).reshape(-1).to(torch.int32)
     mask = ok.reshape(-1).to(torch.int32)
     vals = torch.cat([feats[:, 0::3], weights[None, 0::3]]).reshape(11, -1)
+    # the kernel keeps the CPU index_add_'s order of addition: exact there
     got = fsegsum.float_segsum(ids, mask, vals, K, 10)
-    ref = fsegsum.plain(ids, mask, vals, K, 10)
-    bound = 1e-5 * fsegsum.plain(ids, mask, vals.abs(), K, 10)
-    record("fsegsum", max_abs_err(got, ref),
-           *timing(lambda: fsegsum.float_segsum(ids, mask, vals, K, 10),
-                   lambda: fsegsum.plain(ids, mask, vals, K, 10)),
-           ok=bool(((got - ref).abs() <= bound).all()))
-    log("kernel phase: float path at N=%d segment-sum pixels, fsegsum max "
-        "abs err %r (bound: 1e-5 of each bin's sum of |w*f|, max %r)"
-        % (ids.numel(), max_abs_err(got, ref), float(bound.max())))
+    ref = fsegsum.plain(ids.cpu(), mask.cpu(), vals.cpu(), K, 10)
+    res.check("fsegsum", max_abs_err(got.cpu(), ref))
+    got2 = fsegsum.float_segsum(ids, mask, vals, K, 10)
+    require(torch.equal(got, got2), "fsegsum differs between two runs")
+    ids_long = ids.long()   # unassigned pixels already in the dropped bin K
+    Ns = ids.numel()
+    # library: the unweighted sum of the same rows (one index_add_)
+    res.time("fsegsum", lambda: fsegsum.float_segsum(ids, mask, vals, K, 10),
+             lambda: fsegsum.plain(ids, mask, vals, K, 10),
+             nbytes(ids, mask, vals) + 44 * (K + 1), 22 * Ns,
+             library_fn=lambda: torch.zeros(
+                 (11, K + 1), device=dev).index_add_(1, ids_long, vals))
+    log("kernel phase: float path at N=%d segment-sum pixels" % Ns)
+
+
+def frame_kernel_phase(dev, frames, K: int, res: Results):
+    """The kernels with a frame axis and the two kernels of the preemptive
+    and stacked paths, on four stacked frames after nine preemptive loop
+    iterations (the pixel mask then has inactive cells): assign, float
+    assign (real, real_l2, real_noq) and update over the B frames, the
+    masked update at B=4 and B=1, each at stride 3 with each remainder and
+    at stride 1, and the per-frame segment sum on the frames' CCA values."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
+    from fast_slic_tpu_torch.kernels import assign, assign_float, segsum
+    from fast_slic_tpu_torch.ops.cca import framed_components, segsum_values
+
+    B = len(frames)
+    H, W = frames[0].shape[:2]
+    n = H * W
+    cfg = StaticConfig(H=H, W=W, K=K, preemptive=True)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25, 0.05)
+    sts = [cl.initialize_clusters(f, K) for f in frames]
+    st = cl.Clusters(*(np.stack(xs) for xs in zip(
+        *(s.fields() for s in sts)))).to_torch(dev)
+    images = torch.from_numpy(np.stack(frames)).to(dev)
+    no_lsc = (None, None, None)
+    planes, st, _ = pipeline.stage_setup(images, st, cfg, scal)
+    st, a0, _, _ = pipeline.stage_loop(planes, st, no_lsc, cfg, scal, 9, 3)
+    mask = pipeline.preemptive_mask(st, cfg)
+    share = float(mask.float().mean())
+    log("frame kernel phase: B=%d, after 9 preemptive iterations %.4f of "
+        "the pixels active, %d of %d clusters inactive"
+        % (B, share, int((st.is_active == 0).sum()), B * K))
+    require(share < 1.0, "no inactive cell after nine preemptive iterations")
+    st = pipeline._clamp_centers(st, cfg)
+    cand, _ = pipeline.build_candidates_batched(st.y, st.x, st.is_active, cfg)
+    table = pipeline.center_table(st)
+    planes1, mask1 = planes[:, 0].contiguous(), mask[0]
+    for stride, rem in ((3, 0), (3, 1), (3, 2), (1, 0)):
+        P = len(range(rem, H, stride)) * W
+        outs = []
+        for fn in (assign.assign, assign.plain):
+            a = a0.clone()
+            md = torch.full_like(a, UNASSIGNED)
+            fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem, True,
+               min_dists=md)
+            outs.append((a, md))
+        res.check("assign", max(max_abs_err(outs[0][0], outs[1][0]),
+                                max_abs_err(outs[0][1], outs[1][1])))
+        a_k = outs[0][0]
+        if rem == 0:
+            log_times("assign B=%d at stride %d" % (B, stride),
+                      lambda: assign.assign(planes, table, cand, a_k,
+                                            scal.coef, cfg.S, stride, rem,
+                                            True),
+                      lambda: assign.plain(planes, table, cand, a_k,
+                                           scal.coef, cfg.S, stride, rem,
+                                           True),
+                      16 * B * P + nbytes(cand, table),
+                      OPS_PER_VISIT["standard"]
+                      * cand_visits(cand, H, W, cfg.S, stride, rem))
+        for variant in ("real", "real_l2", "real_noq"):
+            outs = []
+            for fn in (assign_float.assign_float, assign_float.plain):
+                a = a0.clone()
+                md = torch.full(a.shape, assign_float.F32_MAX, device=dev)
+                fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem,
+                   variant, True, md)
+                outs.append((a, md))
+            res.check("assign_float",
+                      max(max_abs_err(outs[0][0], outs[1][0]),
+                          max_abs_err(outs[0][1], outs[1][1])))
+            if (stride, rem) == (3, 0):
+                a_f = outs[0][0]
+                log_times(
+                    "assign_float %s B=%d at stride 3" % (variant, B),
+                    lambda: assign_float.assign_float(
+                        planes, table, cand, a_f, scal.coef, cfg.S, stride,
+                        rem, variant, True),
+                    lambda: assign_float.plain(
+                        planes, table, cand, a_f, scal.coef, cfg.S, stride,
+                        rem, variant, True),
+                    16 * B * P + nbytes(cand, table),
+                    OPS_PER_VISIT[variant]
+                    * cand_visits(cand, H, W, cfg.S, stride, rem))
+        res.check("slic_update",
+                  max_abs_err(segsum.slic_update(a_k, planes, K, stride, rem),
+                              segsum.slic_update_plain(a_k, planes, K, stride,
+                                                       rem)))
+        if rem == 0:
+            log_times("slic_update B=%d at stride %d" % (B, stride),
+                      lambda: segsum.slic_update(a_k, planes, K, stride, rem),
+                      lambda: segsum.slic_update_plain(a_k, planes, K,
+                                                       stride, rem),
+                      16 * B * P + 24 * B * K, 6 * B * P)
+        for nb, args in ((B, (a_k, planes, mask)), (1, (a_k[0], planes1,
+                                                         mask1))):
+            res.check("slic_update_masked", max_abs_err(
+                segsum.slic_update_masked(*args, K, stride, rem),
+                segsum.slic_update_masked_plain(*args, K, stride, rem)))
+            if rem:
+                continue
+            active = int(args[2][rem::stride].sum())
+            timed = (lambda args=args: segsum.slic_update_masked(
+                         *args, K, stride, rem),
+                     lambda args=args: segsum.slic_update_masked_plain(
+                         *args, K, stride, rem),
+                     17 * nb * P + 24 * nb * K, 6 * active)
+            if (nb, stride) == (1, 3):
+                res.time("slic_update_masked", *timed)
+            else:
+                log_times("slic_update_masked B=%d at stride %d"
+                          % (nb, stride), *timed)
+
+    # the per-frame segment sum on the CCA values of the four frames
+    st = st.replace(is_active=torch.ones_like(st.is_active))
+    _, raw, _, _ = pipeline.stage_full_assign(planes, st, no_lsc, None,
+                                              a0.clone(), cfg, scal)
+    comp, is_leader = framed_components(raw, K)
+    vals = segsum_values(comp, is_leader).contiguous()          # [2, B, n]
+    ids = comp.reshape(B, n)
+    res.check("framed_segment_sum", max_abs_err(
+        segsum.framed_segment_sum(ids, vals, n),
+        segsum.framed_segment_sum_plain(ids, vals, n)))
+    gid = (ids.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
+    vals2 = vals.reshape(2, -1)
+    res.time("framed_segment_sum",
+             lambda: segsum.framed_segment_sum(ids, vals, n),
+             lambda: segsum.framed_segment_sum_plain(ids, vals, n),
+             nbytes(ids, vals) + 8 * B * n, 2 * B * n,
+             library_fn=lambda: torch.zeros(
+                 (2, B * n), dtype=torch.int32, device=dev).index_add_(
+                     1, gid, vals2))
 
 
 def slice_phase(dev, frames, K: int):
     """The standard path: SlicAvx2 on the frames on ``dev`` and on the CPU
     (plain path); the results must be equal.  Returns (launch counts of the
     device run, host ms per frame, device ms per frame from the timing
-    report, tie count, last timing report)."""
+    report, tie escalation per frame, last timing report)."""
     from fast_slic_tpu_torch import SlicAvx2
     from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
 
     H, W = frames[0].shape[:2]
     slic = SlicAvx2(num_components=K, device=dev)
-    results, ms, dev_ms, ties = [], [], [], 0
+    results, ms, dev_ms, ties = [], [], [], []
     reset_launches()
     for f in frames:
         t0 = time.perf_counter()
@@ -357,7 +612,7 @@ def slice_phase(dev, frames, K: int):
         ms.append((time.perf_counter() - t0) * 1e3)
         report = slic.slic_model.last_timing_report
         dev_ms.append(json.loads(report)["duration"] / 1e3)
-        ties += int(slic.slic_model.last_cca_tie)
+        ties.append(slic.slic_model.last_cca_tie)
         results.append((labels, slic.slic_model.to_yxmrgb()))
     counts = launch_counts()
 
@@ -376,52 +631,165 @@ def slice_phase(dev, frames, K: int):
     return counts, ms, dev_ms, ties, report
 
 
-def float_slice_phase(dev, frames, K: int):
-    """The float path: LSCAvx2 on two frames and SlicRealDist,
-    SlicRealDistL2 and SlicRealDistNoQ on one frame each, on ``dev`` and on
-    the CPU (plain path).  Returns the launch counts of the device runs."""
-    from fast_slic_tpu_torch import (LSCAvx2, SlicRealDist, SlicRealDistL2,
-                                     SlicRealDistNoQ)
+def compare_phase(dev, runs, K: int, tag: str, **kw):
+    """Models of the classes in ``runs`` ((class, frames) pairs, built with
+    ``kw``) on ``dev``, each carrying its clusters from frame to frame, and
+    every frame again on the CPU (plain path) from the device model's state
+    before that frame: labels and clusters equal, or for LSC labels agree
+    >= 0.999 and clusters within 1 or 1 % (its image-wide float64 sums may
+    round differently on the two devices; a difference would compound over
+    frames if the CPU model carried its own state).  Returns the launch
+    counts of the device runs."""
     from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
 
-    runs = [(LSCAvx2, frames[:2])] + [
-        (cls, frames[:1])
-        for cls in (SlicRealDist, SlicRealDistL2, SlicRealDistNoQ)]
     results = []
     reset_launches()
     for cls, fs in runs:
-        slic = cls(num_components=K, device=dev)
+        slic = cls(num_components=K, device=dev, **kw)
         for f in fs:
-            labels = slic.iterate(f)
-            report = json.loads(slic.slic_model.last_timing_report)
-            results.append((labels, slic.slic_model.to_yxmrgb(),
-                            report["duration"] / 1e3))
+            model = slic.slic_model
+            start = model._clusters.copy() if model.initialized else None
+            t0 = time.perf_counter()
+            labels = slic.iterate(f)  # numpy: the device has finished
+            host_ms = (time.perf_counter() - t0) * 1e3
+            report = json.loads(model.last_timing_report)
+            results.append((start, labels, model.to_yxmrgb(),
+                            report["duration"] / 1e3, host_ms,
+                            model.last_cca_tie))
     counts = launch_counts()
 
     out = iter(results)
     for cls, fs in runs:
-        plain = cls(num_components=K, device="cpu")
         for i, f in enumerate(fs):
-            labels, yxmrgb, dev_ms = next(out)
+            start, labels, yxmrgb, dev_ms, host_ms, tie = next(out)
+            plain = cls(num_components=K, device="cpu", **kw)
+            if start is not None:
+                plain.slic_model._clusters = start
+                plain.slic_model.initialized = True
             ref = plain.iterate(f)
             ref_yxm = plain.slic_model.to_yxmrgb()
             agree = float((labels == ref).mean())
             moved = int((yxmrgb != ref_yxm).any(axis=1).sum())
-            log("slice %s frame %d: %.3f ms (CUDA events over iterate), "
-                "label agreement with the plain path %r, clusters that "
-                "differ %d" % (cls.__name__, i + 1, dev_ms, agree, moved))
+            log("slice %s %s frame %d: %.3f ms (CUDA events over iterate), "
+                "%.3f ms (host clock), tie escalation %s, label agreement "
+                "with the plain path %r, clusters that differ %d"
+                % (tag, cls.__name__, i + 1, dev_ms, host_ms, tie, agree,
+                   moved))
             require(labels.shape == ref.shape and labels.min() >= 0,
                     "%s frame %d: labels shape or range" % (cls.__name__, i))
-            if cls is LSCAvx2:
-                require(agree >= 0.999, "LSC frame %d: agreement %r"
-                        % (i, agree))
-                require(np.allclose(yxmrgb, ref_yxm, rtol=0.01, atol=1.0),
-                        "LSC frame %d: clusters differ from the plain path"
-                        % i)
+            if cls.__name__.startswith("LSC"):
+                far = int((~np.isclose(yxmrgb, ref_yxm, rtol=0.01, atol=1.0)
+                           ).any(axis=1).sum())
+                log("slice %s %s frame %d: %d clusters beyond 1 or 1 %% of "
+                    "the plain path (largest difference %r)"
+                    % (tag, cls.__name__, i + 1, far,
+                       float(np.abs(yxmrgb - ref_yxm).max())))
+                require(agree >= 0.999, "%s frame %d: agreement %r"
+                        % (cls.__name__, i, agree))
+                require(far == 0, "%s frame %d: clusters differ from the "
+                        "plain path" % (cls.__name__, i))
             else:
                 require(agree == 1.0 and np.array_equal(yxmrgb, ref_yxm),
-                        "%s: labels or clusters differ from the plain path"
-                        % cls.__name__)
+                        "%s frame %d: labels or clusters differ from the "
+                        "plain path" % (cls.__name__, i))
+    return counts
+
+
+def timed_batch(bs, frames):
+    """One BatchedSlic.iterate: labels on the host, CUDA-event ms and
+    host-clock ms (both end when the device has finished), and the number
+    of frames that took the tie escalation."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    labels = bs.iterate(frames)
+    stop.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return (labels.cpu().numpy(), start.elapsed_time(stop), host_ms,
+            int(bs.last_flags.sum()))
+
+
+def states_equal(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(a.fields(), b.fields()))
+
+
+def batch_phase(dev, batches, K: int):
+    """BatchedSlic on the batches (frame position f of every batch is one
+    stream) in stack and in map mode, then one stacked batch with the
+    preemptive grid and one of real_noq; the checks of phase 7.  Returns
+    the launch counts of the batch path."""
+    from fast_slic_tpu_torch import SlicAvx2
+    from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
+    from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+
+    B = len(batches[0])
+    modes = {m: BatchedSlic(num_components=K, batch_mode=m, device=dev)
+             for m in ("stack", "map")}
+    extra = [BatchedSlic(num_components=K, batch_mode="stack", device=dev,
+                         **kw)
+             for kw in ({"preemptive": True}, {"variant": "real_noq"})]
+    labels = {m: [] for m in modes}
+    reset_launches()
+    for t, frames in enumerate(batches):
+        for m, bs in modes.items():
+            lab, dev_ms, host_ms, ties = timed_batch(bs, frames)
+            labels[m].append(lab)
+            log("batch %s B=%d batch %d: %.3f ms (CUDA events over iterate), "
+                "%.3f ms (host clock); per frame %.3f ms, %.3f ms; %d tie "
+                "escalations" % (m, B, t + 1, dev_ms, host_ms, dev_ms / B,
+                                 host_ms / B, ties))
+    extra_labels = []
+    for bs in extra:
+        lab, dev_ms, host_ms, ties = timed_batch(bs, batches[0])
+        extra_labels.append(lab)
+        log("batch stack %s B=%d: %.3f ms (CUDA events), %.3f ms (host "
+            "clock); %d tie escalations"
+            % ("preemptive" if bs.preemptive else bs.variant, B, dev_ms,
+               host_ms, ties))
+    counts = launch_counts()
+
+    for t in range(len(batches)):
+        require(np.array_equal(labels["stack"][t], labels["map"][t]),
+                "batch %d: stack and map labels differ" % t)
+        require(labels["stack"][t].shape == batches[t].shape[:3]
+                and labels["stack"][t].min() >= 0
+                and labels["stack"][t].max() < K,
+                "batch %d: labels shape or range" % t)
+    require(states_equal(modes["stack"].state, modes["map"].state),
+            "stack and map cluster states differ")
+    st = modes["stack"].state
+    for f in range(B):
+        slic = SlicAvx2(num_components=K, device=dev)
+        for t, frames in enumerate(batches):
+            require(np.array_equal(slic.iterate(frames[f]),
+                                   labels["stack"][t][f]),
+                    "batch %d frame %d: labels differ from SlicAvx2" % (t, f))
+        yxm = slic.slic_model.to_yxmrgb()
+        require(np.array_equal(
+            np.stack([st.y[f], st.x[f], st.num_members[f].astype(np.float32),
+                      st.r[f], st.g[f], st.b[f]], 1).astype(np.float64),
+            yxm), "frame %d: clusters differ from SlicAvx2" % f)
+    for kw, bs, lab in zip(({"preemptive": True}, {"variant": "real_noq"}),
+                           extra, extra_labels):
+        ref = BatchedSlic(num_components=K, batch_mode="map", device=dev,
+                          **kw)
+        require(np.array_equal(ref.iterate(batches[0]).cpu().numpy(), lab)
+                and states_equal(ref.state, bs.state),
+                "stack %r differs from map mode" % (kw,))
+    pair = batches[0][:2]
+    gpu = BatchedSlic(num_components=K, batch_mode="stack", device=dev)
+    cpu = BatchedSlic(num_components=K, batch_mode="stack", device="cpu")
+    require(np.array_equal(gpu.iterate(pair).cpu().numpy(),
+                           cpu.iterate(pair).numpy())
+            and states_equal(gpu.state, cpu.state),
+            "stack batch of two differs from the plain path")
+    log("batch: stack == map == SlicAvx2 on %d batches of %d frames; "
+        "preemptive and real_noq stacks == map; B=2 stack == plain path"
+        % (len(batches), B))
     return counts
 
 
@@ -456,20 +824,20 @@ def golden_phase(dev):
                 "golden %s: cluster y/x/num_members differ" % name)
 
 
-def profile_phase(dev, frames, K: int, cls):
-    """torch.profiler over one steady-state frame of ``cls`` (a path's
-    class): device time by kernel and the device's busy share of the
-    frame's wall time."""
+def profile_phase(name: str, warm, run, frames: int = 1):
+    """torch.profiler over ``run()`` after ``warm()``: device time by
+    kernel and the device's busy share of the wall time (per frame when
+    ``run`` covers several)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    slic = cls(num_components=K, device=dev)
-    slic.iterate(frames[0])
+    warm()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        slic.iterate(frames[1])
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for e in prof.key_averages():
@@ -485,10 +853,12 @@ def profile_phase(dev, frames, K: int, cls):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     require(busy > 0, "the profiler saw no device time")
-    name = cls.__name__
-    log("profile %s: frame wall %.1f us, device busy %.1f us (%.1f%%), "
-        "idle %.1f%%" % (name, wall_us, busy, 100 * busy / wall_us,
-                         100 - 100 * busy / wall_us))
+    log("profile %s: wall %.1f us, device busy %.1f us (%.1f%%), idle "
+        "%.1f%%, %d device launches (kernels, copies, memsets); per frame "
+        "(%d): wall %.1f us, busy %.1f us"
+        % (name, wall_us, busy, 100 * busy / wall_us,
+           100 - 100 * busy / wall_us, sum(r[1] for r in rows), frames,
+           wall_us / frames, busy / frames))
     for us, count, key in rows[:20]:
         log("profile %s: %10.1f us %5d x %8.1f us  %s"
             % (name, us, count, us / count, key[:90]))
@@ -513,46 +883,65 @@ def main() -> int:
     log("build: nvcc %.1f s -> %s" % (secs, _lib.LIB_PATH))
 
     frames = make_frames(4, H720, W720)
-    kres = kernel_phase(dev, frames[0], K720, timed=True)
-    for name, r in kres.items():
-        log("kernel %s: max abs err %r, kernel %.4f ms, plain %.4f ms"
-            % (name, r["max_abs_err"], r["ms"], r["plain_ms"]))
+    more = make_frames(2 * BATCH, H720, W720, seed=1)
+    batches = [np.stack(more[:BATCH]), np.stack(more[BATCH:])]
+    res = Results()
+    kernel_phase(dev, frames[0], K720, res)
+    frame_kernel_phase(dev, list(batches[0]), K720, res)
+    res.log()
 
-    counts, ms, dev_ms, ties, report = slice_phase(dev, frames, K720)
-    log("slice: standard path launches %s" % json.dumps(counts))
+    counts = {}
+    counts["standard"], ms, dev_ms, ties, report = slice_phase(dev, frames,
+                                                               K720)
     log("slice: ms per frame, CUDA events over iterate: %s"
         % ", ".join("%.3f" % m for m in dev_ms))
     log("slice: ms per frame, host clock around SlicAvx2.iterate: %s"
         % ", ".join("%.3f" % m for m in ms))
-    log("slice: tie escalations %d of %d frames" % (ties, len(frames)))
+    log("slice: tie escalation per frame: %s" % ties)
     log("slice: last frame phases (CUDA events, us) " + report)
-    missing = [k for k in STANDARD_PATH if counts[k] <= 0]
-    require(not missing, "kernels never launched on the standard path: %s"
-            % missing)
 
-    fcounts = float_slice_phase(dev, frames, K720)
-    log("slice: float path launches %s" % json.dumps(fcounts))
-    missing = [k for k in FLOAT_PATH if fcounts[k] <= 0]
-    require(not missing, "kernels never launched on the float path: %s"
-            % missing)
-    # each kernel's launches as counted on its path: the standard path's,
-    # or the float path's for the kernels only that path runs
-    launches = {k.name: counts[k.name] if k.name in STANDARD_PATH
-                else fcounts[k.name] for k in KERNELS}
+    from fast_slic_tpu_torch import (LSCAvx2, SlicAvx2, SlicRealDist,
+                                     SlicRealDistL2, SlicRealDistNoQ)
+    counts["float"] = compare_phase(
+        dev, [(LSCAvx2, frames[:2])] + [
+            (cls, frames[:1])
+            for cls in (SlicRealDist, SlicRealDistL2, SlicRealDistNoQ)],
+        K720, "float")
+    counts["preemptive"] = compare_phase(
+        dev, [(SlicAvx2, frames), (LSCAvx2, frames[:1])], K720, "preemptive",
+        preemptive=True)
+    counts["batch"] = batch_phase(dev, batches, K720)
+    for path, need in (("standard", STANDARD_PATH), ("float", FLOAT_PATH),
+                       ("preemptive", PREEMPTIVE_PATH),
+                       ("batch", BATCH_PATH)):
+        log("slice: %s path launches %s" % (path, json.dumps(counts[path])))
+        missing = [k for k in need if counts[path][k] <= 0]
+        require(not missing, "kernels never launched on the %s path: %s"
+                % (path, missing))
 
     golden_phase(dev)
     if "--profile" in sys.argv[1:]:
-        from fast_slic_tpu_torch import LSCAvx2, SlicAvx2
-        for cls in (SlicAvx2, LSCAvx2):
-            profile_phase(dev, frames, K720, cls)
+        from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+        for name, cls, kw in (("SlicAvx2", SlicAvx2, {}),
+                              ("LSCAvx2", LSCAvx2, {}),
+                              ("SlicAvx2 preemptive", SlicAvx2,
+                               {"preemptive": True})):
+            slic = cls(num_components=K720, device=dev, **kw)
+            profile_phase(name, lambda: slic.iterate(frames[0]),
+                          lambda: slic.iterate(frames[1]))
+        bs = BatchedSlic(num_components=K720, batch_mode="stack", device=dev)
+        profile_phase("BatchedSlic stack B=%d" % BATCH,
+                      lambda: bs.iterate(batches[0]),
+                      lambda: bs.iterate(batches[1]), frames=BATCH)
     require("jax" not in sys.modules, "the port imported jax")
 
-    log(json.dumps({"kernels": [
-        {"name": k.name, "route": k.route, "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": kres[k.name]["max_abs_err"],
-         "ms": kres[k.name]["ms"], "plain_ms": kres[k.name]["plain_ms"]}
-        for k in KERNELS]}))
+    rows = []
+    for k in KERNELS:
+        r = dict(res.rows[k.name])
+        rows.append({"name": k.name, "route": k.route, "source": k.source,
+                     "replaces": k.replaces,
+                     "launches": counts[COUNTED_ON[k.name]][k.name], **r})
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

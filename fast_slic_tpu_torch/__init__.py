@@ -12,10 +12,12 @@ runs each kernel's plain PyTorch version.  The arch names ("standard",
 
 Ported: every distance variant (``Slic``; ``SlicRealDist``,
 ``SlicRealDistL2``, ``SlicRealDistNoQ``, ``LSC``) with CIELAB conversion,
-the subsampled assign/update loop, the full assign and connectivity
-enforcement with its exact tie escalation.  Preemptive mode, debug/profile
-reports, batching and the graph utilities raise NotImplementedError naming
-their ROADMAP.md item.
+the subsampled assign/update loop and its preemptive grid
+(``preemptive=True``), the full assign and connectivity enforcement with
+its exact tie escalation, and batched video frames
+(``fast_slic_tpu_torch.parallel.batch.BatchedSlic``, map and stack modes).
+Debug/profile reports, multi-device meshes and the graph utilities raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from .models.slic import (  # noqa: F401

@@ -74,6 +74,7 @@ class StaticConfig:
     convert_to_lab: bool = True
     manhattan_spatial_dist: bool = True
     float_color: bool = True   # ContextRealDistNoQ.float_color (no-op; context.h:116)
+    preemptive: bool = False   # the preemptive grid (preemptive.h)
     # Per-cell candidate list length (see pipeline.build_candidates); an
     # overflow is flagged and the runner re-runs with 3x the slots (max 48).
     cand_slots: int = 16
@@ -101,3 +102,4 @@ class RuntimeParams:
     min_size_factor: float = 0.25
     subsample_stride: int = 3
     max_iter: int = 10
+    preemptive_thres: float = 0.05

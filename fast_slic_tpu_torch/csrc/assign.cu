@@ -23,6 +23,12 @@
 // design keeps all slot state in registers and stops at the first empty
 // slot.
 //
+// Frame axis: B stacked frames (planes [3, B, H, W], table [B, K, 5], cand
+// [B, GH, GW, C], assignment and min_dists [B, H, W]; the stacked batch
+// mode, the TPU kernel's frames= grid) run in one launch with the frame as
+// blockIdx.z; all row and cell math stays frame-local, so B = 1 is the
+// single-frame pass.
+//
 // Exactness: built with -fmad=false, so coef * sqrtf(di*di + dj*dj) rounds
 // each operation as the JAX package does; coef arrives as the exact
 // float32 that pipeline.derive_scalars computes on the host.
@@ -41,18 +47,22 @@ __global__ void assign_kernel(const int32_t* __restrict__ planes,
                               int32_t* __restrict__ assignment,
                               int32_t* __restrict__ min_dists, float coef,
                               int H, int W, int S, int GH, int GW, int C,
-                              int stride, int rem, int manhattan) {
+                              int stride, int rem, int manhattan, int K,
+                              int B) {
     int j = blockIdx.x * blockDim.x + threadIdx.x;
     int i = rem + blockIdx.y * stride;
+    int f = blockIdx.z;
     if (j >= W || i >= H) return;
-    int n = H * W;
-    int p = i * W + j;
+    long long n = (long long)H * W;
+    long long p = f * n + (long long)i * W + j;  // pixel of the [B, H, W] stack
+    long long cs = B * n;                        // channel stride of planes
     int l0 = planes[p];
-    int l1 = planes[n + p];
-    int l2 = planes[2 * n + p];
+    int l1 = planes[cs + p];
+    int l2 = planes[2 * cs + p];
     int ci = min(i / S, GH - 1);
     int cj = min(j / S, GW - 1);
-    const int32_t* ids = cand + ((long long)ci * GW + cj) * C;
+    const int32_t* ids = cand + (((long long)f * GH + ci) * GW + cj) * C;
+    table += (long long)f * K * 5;
 
     int best = kNone;
     for (int s = 0; s < C; ++s) {
@@ -89,19 +99,20 @@ __global__ void assign_kernel(const int32_t* __restrict__ planes,
 
 }  // namespace
 
+// B frames of K clusters each (B = 1: one frame)
 extern "C" int fstt_assign(const void* planes, const void* table,
                            const void* cand, void* assignment,
                            void* min_dists, float coef, int H, int W, int S,
                            int GH, int GW, int C, int stride, int rem,
-                           int manhattan, void* stream) {
+                           int manhattan, int K, int B, void* stream) {
     int rows = rem < H ? (H - rem + stride - 1) / stride : 0;
-    if (rows > 0 && W > 0) {
+    if (rows > 0 && W > 0 && B > 0) {
         dim3 threads(128);
-        dim3 blocks((W + threads.x - 1) / threads.x, rows);
+        dim3 blocks((W + threads.x - 1) / threads.x, rows, B);
         assign_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
             (const int32_t*)planes, (const float*)table,
             (const int32_t*)cand, (int32_t*)assignment, (int32_t*)min_dists,
-            coef, H, W, S, GH, GW, C, stride, rem, manhattan);
+            coef, H, W, S, GH, GW, C, stride, rem, manhattan, K, B);
     }
     return (int)cudaGetLastError();
 }

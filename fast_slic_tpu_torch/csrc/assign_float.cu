@@ -42,6 +42,12 @@
 // kernel is bound by its per-slot float work.  Each thread keeps its pixel
 // (and LSC's 10 features) in registers and stops at the first empty slot.
 
+// Frame axis: B stacked frames (planes [3, B, H, W], feats [10, B, H, W],
+// table [B, K, 5], cent [B, K, 10], cand [B, GH, GW, C], assignment and
+// min_dists [B, H, W]; the stacked batch mode, the TPU kernel's frames=
+// grid) run in one launch with the frame as blockIdx.z; all row and cell
+// math stays frame-local, so B = 1 is the single-frame pass.
+
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,25 +66,30 @@ __global__ void assign_float_kernel(const int32_t* __restrict__ planes,
                                     int32_t* __restrict__ assignment,
                                     float* __restrict__ min_dists, float coef,
                                     int H, int W, int S, int GH, int GW,
-                                    int C, int stride, int rem) {
+                                    int C, int stride, int rem, int K,
+                                    int B) {
     int j = blockIdx.x * blockDim.x + threadIdx.x;
     int i = rem + blockIdx.y * stride;
+    int fr = blockIdx.z;
     if (j >= W || i >= H) return;
-    int n = H * W;
-    int p = i * W + j;
+    long long n = (long long)H * W;
+    long long p = fr * n + (long long)i * W + j;  // pixel of the stack
+    long long cs = B * n;                         // channel stride
     int l0 = 0, l1 = 0, l2 = 0;
     float f[kFeat];
     if (V == kLsc) {
 #pragma unroll
-        for (int c = 0; c < kFeat; ++c) f[c] = feats[(long long)c * n + p];
+        for (int c = 0; c < kFeat; ++c) f[c] = feats[c * cs + p];
+        cent += (long long)fr * K * kFeat;
     } else {
         l0 = planes[p];
-        l1 = planes[n + p];
-        l2 = planes[2 * n + p];
+        l1 = planes[cs + p];
+        l2 = planes[2 * cs + p];
     }
     int ci = min(i / S, GH - 1);
     int cj = min(j / S, GW - 1);
-    const int32_t* ids = cand + ((long long)ci * GW + cj) * C;
+    const int32_t* ids = cand + (((long long)fr * GH + ci) * GW + cj) * C;
+    table += (long long)fr * K * 5;
 
     float md = FLT_MAX;
     int ms = -1;
@@ -158,35 +169,36 @@ void launch(dim3 blocks, dim3 threads, cudaStream_t stream,
             const void* planes, const void* feats, const void* table,
             const void* cent, const void* cand, void* assignment,
             void* min_dists, float coef, int H, int W, int S, int GH, int GW,
-            int C, int stride, int rem) {
+            int C, int stride, int rem, int K, int B) {
     assign_float_kernel<V, kManhattan><<<blocks, threads, 0, stream>>>(
         (const int32_t*)planes, (const float*)feats, (const float*)table,
         (const float*)cent, (const int32_t*)cand, (int32_t*)assignment,
-        (float*)min_dists, coef, H, W, S, GH, GW, C, stride, rem);
+        (float*)min_dists, coef, H, W, S, GH, GW, C, stride, rem, K, B);
 }
 
 }  // namespace
 
-// variant: 0 real, 1 real_l2, 2 real_noq, 3 lsc.  planes int32 [3, H, W]
-// (unused by lsc), feats f32 [10, H, W] and cent f32 [K, 10] (lsc only,
-// else null), table f32 [K, 5], cand int32 [GH, GW, C], assignment int32
-// [H, W] updated in place, min_dists f32 [H, W] or null.
+// variant: 0 real, 1 real_l2, 2 real_noq, 3 lsc.  B frames of K clusters
+// (B = 1: one frame): planes int32 [3, B, H, W] (unused by lsc), feats f32
+// [10, B, H, W] and cent f32 [B, K, 10] (lsc only, else null), table f32
+// [B, K, 5], cand int32 [B, GH, GW, C], assignment int32 [B, H, W] updated
+// in place, min_dists f32 [B, H, W] or null.
 extern "C" int fstt_assign_float(const void* planes, const void* feats,
                                  const void* table, const void* cent,
                                  const void* cand, void* assignment,
                                  void* min_dists, float coef, int H, int W,
                                  int S, int GH, int GW, int C, int stride,
-                                 int rem, int variant, int manhattan,
-                                 void* stream) {
+                                 int rem, int variant, int manhattan, int K,
+                                 int B, void* stream) {
     int rows = rem < H ? (H - rem + stride - 1) / stride : 0;
-    if (rows > 0 && W > 0) {
+    if (rows > 0 && W > 0 && B > 0) {
         dim3 threads(128);
-        dim3 blocks((W + threads.x - 1) / threads.x, rows);
+        dim3 blocks((W + threads.x - 1) / threads.x, rows, B);
         cudaStream_t st = (cudaStream_t)stream;
 #define FSTT_LAUNCH(V, M)                                                   \
     launch<V, M>(blocks, threads, st, planes, feats, table, cent, cand,     \
                  assignment, min_dists, coef, H, W, S, GH, GW, C, stride,   \
-                 rem)
+                 rem, K, B)
         switch (variant) {
             case kReal:
                 if (manhattan) FSTT_LAUNCH(kReal, true);

@@ -50,6 +50,12 @@ KERNELS = (
     Kernel("fsegsum", _fsegsum.float_segsum, "cuda",
            "fast_slic_tpu_torch/csrc/fsegsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:444"),
+    Kernel("slic_update_masked", _segsum.slic_update_masked, "cuda",
+           "fast_slic_tpu_torch/csrc/segsum.cu",
+           "fast_slic_tpu/pallas/segsum_tpu.py:104"),
+    Kernel("framed_segment_sum", _segsum.framed_segment_sum, "cuda",
+           "fast_slic_tpu_torch/csrc/segsum.cu",
+           "fast_slic_tpu/pallas/segsum_tpu.py:90"),
 )
 
 

@@ -40,15 +40,17 @@ F = ctypes.c_float
 # C signatures of the entry points (every one returns cudaError_t as int)
 _SIGNATURES = {
     "fstt_lab": [P, P, P, P, P, I, P],
-    "fstt_assign": [P, P, P, P, P, F, I, I, I, I, I, I, I, I, I, P],
-    "fstt_slic_update": [P, P, P, I, I, I, I, I, P],
+    "fstt_assign": [P, P, P, P, P, F, I, I, I, I, I, I, I, I, I, I, I, P],
+    "fstt_slic_update": [P, P, P, I, I, I, I, I, I, P],
+    "fstt_slic_update_masked": [P, P, P, P, I, I, I, I, I, I, P],
     "fstt_segment_sum": [P, P, P, I, I, I, P],
+    "fstt_framed_segment_sum": [P, P, P, I, I, I, I, P],
     "fstt_cc": [P, P, I, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
     "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,
-                          I, P],
+                          I, I, I, P],
     "fstt_lsc_feat": [P, P, P, I, P],
-    "fstt_fsegsum": [P, P, P, P, I, I, I, I, P],
+    "fstt_fsegsum": [P, P, P, P, P, I, I, I, I, P],
 }
 
 

@@ -4,6 +4,11 @@
 :func:`plain` is the plain PyTorch version: the standard branch of
 ``fast_slic_tpu.pipeline.assign_xla`` restricted to the rows it writes.  A
 CPU tensor goes to it; a CUDA tensor launches the kernel.
+
+Both take one frame or B stacked frames (a leading frame dim on every
+argument: planes [3, B, H, W], table [B, K, 5], cand [B, GH, GW, C],
+assignment and min_dists [B, H, W]); the kernel runs the B frames in one
+launch, the plain version one after the other.
 """
 
 from __future__ import annotations
@@ -19,19 +24,28 @@ __all__ = ["assign", "plain"]
 _NONE = 0x7FFFFFFF
 
 
-def _check_args(planes, table, cand, assignment, S, stride, rem):
-    H, W = assignment.shape
-    if planes.shape != (3, H, W):
-        raise ValueError("planes must be [3, %d, %d]" % (H, W))
-    if table.ndim != 2 or table.shape[1] != 5:
-        raise ValueError("table must be [K, 5]")
+def check_frames(planes, table, cand, assignment, S, stride, rem):
+    """Validate the shapes of one assign pass (one frame or B frames);
+    returns the frame count B (1 for one frame)."""
+    if assignment.ndim not in (2, 3):
+        raise ValueError("assignment must be [H, W] or [B, H, W]")
+    lead = tuple(assignment.shape[:-2])
+    H, W = assignment.shape[-2:]
+    if planes.shape != (3,) + tuple(assignment.shape):
+        raise ValueError("planes must be [3, %s]"
+                         % ", ".join(map(str, assignment.shape)))
+    if table.ndim != len(lead) + 2 or tuple(table.shape[:-2]) != lead or (
+            table.shape[-1] != 5):
+        raise ValueError("table must be [%sK, 5]" % ("B, " if lead else ""))
     GH, GW = -(-H // S), -(-W // S)
-    if cand.ndim != 3 or cand.shape[:2] != (GH, GW):
-        raise ValueError("cand must be [%d, %d, C]" % (GH, GW))
-    if cand.shape[2] >= 128:
+    if cand.ndim != len(lead) + 3 or tuple(cand.shape[:-1]) != lead + (GH, GW):
+        raise ValueError("cand must be [%s%d, %d, C]"
+                         % ("B, " if lead else "", GH, GW))
+    if cand.shape[-1] >= 128:
         raise ValueError("slot index must fit in 7 bits")
     if not (stride >= 1 and 0 <= rem < stride):
         raise ValueError("need stride >= 1 and 0 <= rem < stride")
+    return lead[0] if lead else 1
 
 
 def plain(planes, table, cand, assignment, coef, S: int, stride: int,
@@ -42,8 +56,15 @@ def plain(planes, table, cand, assignment, coef, S: int, stride: int,
     [GH, GW, C] visit-ordered candidate ids (-1 = empty); assignment int32
     [H, W], updated where a candidate wins; min_dists int32 [H, W] or None,
     set on the processed rows to the winning distance or 0xFFFF.
-    ``coef`` is the float32 spatial coefficient."""
-    _check_args(planes, table, cand, assignment, S, stride, rem)
+    ``coef`` is the float32 spatial coefficient.  B stacked frames: a
+    leading frame dim on every argument."""
+    check_frames(planes, table, cand, assignment, S, stride, rem)
+    if assignment.ndim == 3:
+        for f in range(assignment.shape[0]):
+            plain(planes[:, f], table[f], cand[f], assignment[f], coef, S,
+                  stride, rem, manhattan,
+                  None if min_dists is None else min_dists[f])
+        return assignment
     H, W = assignment.shape
     dev = planes.device
     C = cand.shape[2]
@@ -94,21 +115,21 @@ def assign(planes, table, cand, assignment, coef, S: int, stride: int,
                      manhattan, min_dists)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    _check_args(planes, table, cand, assignment, S, stride, rem)
-    H, W = assignment.shape
-    GH, GW, C = cand.shape
+    B = check_frames(planes, table, cand, assignment, S, stride, rem)
+    H, W = assignment.shape[-2:]
+    GH, GW, C = cand.shape[-3:]
     _lib.check(planes, "planes", torch.int32, dev)
     _lib.check(table, "table", torch.float32, dev)
     _lib.check(cand, "cand", torch.int32, dev)
     _lib.check(assignment, "assignment", torch.int32, dev)
     md = None
     if min_dists is not None:
-        _lib.check(min_dists, "min_dists", torch.int32, dev, (H, W))
+        _lib.check(min_dists, "min_dists", torch.int32, dev, assignment.shape)
         md = _lib.ptr(min_dists)
     _lib.launch("fstt_assign", _lib.ptr(planes), _lib.ptr(table),
                 _lib.ptr(cand), _lib.ptr(assignment), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
-                int(bool(manhattan)))
+                int(bool(manhattan)), table.shape[-2], B)
     assign.launches += 1
     return assignment
 

@@ -7,6 +7,11 @@ restricted to the rows it writes, each distance summed in the kernel's
 order (LSC's ten squares left to right from 0, as the Pallas kernel does;
 ``assign_xla`` uses ``jnp.sum``).  A CPU tensor goes to it; a CUDA tensor
 launches the kernel.
+
+Both take one frame or B stacked frames (a leading frame dim on every
+argument, as in :mod:`.assign`; feats [10, B, H, W], cent [B, K, 10]); the
+kernel runs the B frames in one launch, the plain version one after the
+other.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from ..config import (VARIANT_LSC, VARIANT_REAL, VARIANT_REAL_L2,
                       VARIANT_REAL_NOQ)
 from . import _lib
+from .assign import check_frames
 
 __all__ = ["assign_float", "plain", "F32_MAX"]
 
@@ -28,23 +34,15 @@ N_FEAT = 10
 
 def _check_args(planes, table, cand, assignment, S, stride, rem, variant,
                 feats, cent):
-    H, W = assignment.shape
     if variant not in _VARIANT_CODE:
         raise ValueError("no float assign for variant %r" % (variant,))
-    if planes.shape != (3, H, W):
-        raise ValueError("planes must be [3, %d, %d]" % (H, W))
-    if table.ndim != 2 or table.shape[1] != 5:
-        raise ValueError("table must be [K, 5]")
-    GH, GW = -(-H // S), -(-W // S)
-    if cand.ndim != 3 or cand.shape[:2] != (GH, GW):
-        raise ValueError("cand must be [%d, %d, C]" % (GH, GW))
-    if not (stride >= 1 and 0 <= rem < stride):
-        raise ValueError("need stride >= 1 and 0 <= rem < stride")
+    B = check_frames(planes, table, cand, assignment, S, stride, rem)
     if variant == VARIANT_LSC:
-        if feats is None or feats.shape != (N_FEAT, H, W):
-            raise ValueError("lsc needs feats [10, %d, %d]" % (H, W))
-        if cent is None or cent.shape != (table.shape[0], N_FEAT):
-            raise ValueError("lsc needs cent [K, 10]")
+        if feats is None or feats.shape != (N_FEAT,) + tuple(assignment.shape):
+            raise ValueError("lsc needs feats [10, ...] beside the assignment")
+        if cent is None or cent.shape != tuple(table.shape[:-1]) + (N_FEAT,):
+            raise ValueError("lsc needs cent [..., K, 10] beside the table")
+    return B
 
 
 def plain(planes, table, cand, assignment, coef, S: int, stride: int,
@@ -58,9 +56,18 @@ def plain(planes, table, cand, assignment, coef, S: int, stride: int,
     [H, W], updated where a candidate wins; min_dists f32 [H, W] or None,
     set on the processed rows to the winning distance or FLT_MAX.  LSC also
     takes feats f32 [10, H, W] and cent f32 [K, 10].  ``coef`` is the
-    float32 spatial coefficient."""
+    float32 spatial coefficient.  B stacked frames: a leading frame dim on
+    every argument."""
     _check_args(planes, table, cand, assignment, S, stride, rem, variant,
                 feats, cent)
+    if assignment.ndim == 3:
+        lsc = variant == VARIANT_LSC
+        for f in range(assignment.shape[0]):
+            plain(planes[:, f], table[f], cand[f], assignment[f], coef, S,
+                  stride, rem, variant, manhattan,
+                  None if min_dists is None else min_dists[f],
+                  feats[:, f] if lsc else None, cent[f] if lsc else None)
+        return assignment
     H, W = assignment.shape
     dev = planes.device
     C = cand.shape[2]
@@ -154,10 +161,10 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
                      variant, manhattan, min_dists, feats, cent)
     if dev.type != "cuda":
         raise ValueError("unsupported device %s" % dev)
-    _check_args(planes, table, cand, assignment, S, stride, rem, variant,
-                feats, cent)
-    H, W = assignment.shape
-    GH, GW, C = cand.shape
+    B = _check_args(planes, table, cand, assignment, S, stride, rem,
+                    variant, feats, cent)
+    H, W = assignment.shape[-2:]
+    GH, GW, C = cand.shape[-3:]
     _lib.check(planes, "planes", torch.int32, dev)
     _lib.check(table, "table", torch.float32, dev)
     _lib.check(cand, "cand", torch.int32, dev)
@@ -168,12 +175,14 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
         _lib.check(cent, "cent", torch.float32, dev)
         fp, cp = _lib.ptr(feats), _lib.ptr(cent)
     if min_dists is not None:
-        _lib.check(min_dists, "min_dists", torch.float32, dev, (H, W))
+        _lib.check(min_dists, "min_dists", torch.float32, dev,
+                   assignment.shape)
         md = _lib.ptr(min_dists)
     _lib.launch("fstt_assign_float", _lib.ptr(planes), fp, _lib.ptr(table),
                 cp, _lib.ptr(cand), _lib.ptr(assignment), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
-                _VARIANT_CODE[variant], int(bool(manhattan)))
+                _VARIANT_CODE[variant], int(bool(manhattan)),
+                table.shape[-2], B)
     assign_float.launches += 1
     return assignment
 

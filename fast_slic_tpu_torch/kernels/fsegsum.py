@@ -1,10 +1,12 @@
 """Wrapper of the f32 segment-sum kernel (``csrc/fsegsum.cu``), which
 replaces ``fast_slic_tpu/pallas/segsum_tpu.py:_fsegsum_kernel``.
 
-:func:`plain` is the plain PyTorch version, an f32 ``index_add_``.  A CPU
-tensor goes to it; a CUDA tensor launches the kernel.  The kernel's float
-atomics sum in another order than ``index_add_`` (and in another order on
-every run), so the two agree to f32 rounding, not bit for bit.
+:func:`plain` is the plain PyTorch version, an f32 ``index_add_``, which
+on the CPU adds index by index.  A CPU tensor goes to it; a CUDA tensor
+launches the kernel, which sums every bin in the same pixel order, so the
+kernel equals the plain version on the CPU bit for bit.  (On the card,
+``index_add_`` adds with float atomics in an order that changes from run
+to run.)
 """
 
 from __future__ import annotations
@@ -43,7 +45,10 @@ def plain(ids, mask, vals, num_segments: int, wrow=None):
 
 
 def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
-    """Dispatch the f32 segment sum by device; see :func:`plain`."""
+    """Dispatch the f32 segment sum by device; see :func:`plain`.  On the
+    card a stable sort groups the pixel indices by bin (masked pixels to
+    bin num_segments, as in :func:`plain`) and the kernel sums each bin's
+    run in pixel order."""
     dev = ids.device
     if dev.type == "cpu":
         return plain(ids, mask, vals, num_segments, wrow)
@@ -54,9 +59,15 @@ def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
     _lib.check(mask, "mask", torch.int32, dev)
     _lib.check(vals, "vals", torch.float32, dev)
     V, N = vals.shape
-    out = torch.zeros((V, num_segments + 1), dtype=torch.float32, device=dev)
-    _lib.launch("fstt_fsegsum", _lib.ptr(ids), _lib.ptr(mask),
-                _lib.ptr(vals), _lib.ptr(out), N, V, num_segments + 1,
+    bins = num_segments + 1
+    sorted_ids, order = torch.sort(torch.where(mask != 0, ids, num_segments),
+                                   stable=True)
+    starts = torch.searchsorted(
+        sorted_ids, torch.arange(bins + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    out = torch.empty((V, bins), dtype=torch.float32, device=dev)
+    _lib.launch("fstt_fsegsum", _lib.ptr(order), _lib.ptr(starts),
+                _lib.ptr(mask), _lib.ptr(vals), _lib.ptr(out), N, V, bins,
                 -1 if wrow is None else int(wrow))
     float_segsum.launches += 1
     return out

@@ -116,8 +116,6 @@ class SlicModel:
             ) from None
 
     def _static_config(self, H: int, W: int) -> StaticConfig:
-        if self.preemptive:
-            raise not_ported("preemptive=True", "§1.8")
         if self.debug_mode:
             raise not_ported("debug_mode=True", "§1.15")
         if self.profile:
@@ -128,6 +126,7 @@ class SlicModel:
             convert_to_lab=bool(self.convert_to_lab),
             manhattan_spatial_dist=bool(self.manhattan_spatial_dist),
             float_color=bool(self.float_color),
+            preemptive=bool(self.preemptive),
         )
 
     # -- pipeline entry points ----------------------------------------------
@@ -161,6 +160,7 @@ class SlicModel:
                 min_size_factor=float(min_size_factor),
                 subsample_stride=int(subsample_stride),
                 max_iter=int(max_iter),
+                preemptive_thres=float(self.preemptive_thres),
             ),
             self.device,
         )

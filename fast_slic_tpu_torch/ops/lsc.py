@@ -113,21 +113,27 @@ def seed_centroids(feats, st, cfg: StaticConfig):
 
 
 def after_update(feats, weights, st, cent, cfg: StaticConfig, rem: int,
-                 stride: int, assignment):
+                 stride: int, assignment, pixel_mask=None):
     """Weighted feature re-centroid over the rows i % stride == rem
-    (ContextLSC::after_update, lsc.cpp:226-307).  Returns f32 [K, 10],
-    contiguous (the assign kernel's layout)."""
-    acc11 = after_update_acc(feats[:, rem::stride], weights[rem::stride],
-                             assignment[rem::stride], cfg.K)
+    (ContextLSC::after_update, lsc.cpp:226-307); ``pixel_mask`` (bool
+    [H, W], the preemptive grid's active pixels) restricts it further
+    (lsc.cpp:270-287).  Returns f32 [K, 10], contiguous (the assign
+    kernel's layout)."""
+    acc11 = after_update_acc(
+        feats[:, rem::stride], weights[rem::stride], assignment[rem::stride],
+        cfg.K, None if pixel_mask is None else pixel_mask[rem::stride])
     return after_update_apply(acc11, st, cent)
 
 
-def after_update_acc(feats_s, weights_s, asg_s, K: int):
+def after_update_acc(feats_s, weights_s, asg_s, K: int, pm_s=None):
     """Per-cluster f32 sums [K+1, 11] of w*feat (10 rows) and w over the
-    given pixels; unassigned pixels (0xFFFF) add nothing.  The weight
-    multiply happens inside the segment sum (``wrow=10``)."""
+    given pixels; unassigned pixels (0xFFFF) and pixels outside the bool
+    mask ``pm_s`` add nothing.  The weight multiply happens inside the
+    segment sum (``wrow=10``)."""
     ok = asg_s != UNASSIGNED
     ids = torch.where(ok, asg_s, K).reshape(-1).to(torch.int32)
+    if pm_s is not None:
+        ok = ok & pm_s
     vals = torch.cat([feats_s, weights_s[None]]).reshape(N_FEAT + 1, -1)
     return float_segsum(ids, ok.reshape(-1).to(torch.int32), vals, K,
                         wrow=N_FEAT).t()

@@ -40,7 +40,8 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
     timer = Timer(device)
     with timer.scope("iterate"):
         scalars = pipeline.derive_scalars(cfg, params.compactness,
-                                          params.min_size_factor)
+                                          params.min_size_factor,
+                                          params.preemptive_thres)
         with timer.scope("write_to_buffer"):
             image_t = torch.from_numpy(np.ascontiguousarray(image)).to(device)
             st = clusters.to_torch(device)

@@ -7,11 +7,14 @@ JAX it runs on its own:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Exact: integer outputs and the float assign's distances must be equal;
-the LSC colour features too.  The f32 segment sum is held at 1e-5 of the
-per-bin sum of absolute values (its float atomics add in another order on
-every run).  On the card, the float variants' slices equal the CPU plain
+the LSC colour features too, and so must the masked update, the per-frame
+segment sum and the frame-axis launches of assign, float assign and
+update.  The f32 segment sum must equal its plain version on the CPU,
+whose order of addition it keeps, and give the same sums on every run
+(on the card, index_add_ adds with float atomics in a changing order).  On the card, the float variants' slices equal the CPU plain
 path, and LSC's labels agree >= 0.999 (its image-wide f32 sums differ by
-order between the two devices).
+order between the two devices); so do the preemptive grid and the batched
+frames (``BatchedSlic`` in stack and map mode).
 """
 
 import os
@@ -28,6 +31,7 @@ from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.kernels import (assign, assign_float, cca, fsegsum,
                                          lab, lsc_feat, segsum)
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
+from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
 pytestmark = pytest.mark.gpu
 
@@ -222,7 +226,7 @@ def test_lsc_feat_kernel_matches_plain(cuda, rng):
     _eq(lsc_feat.lsc_color_feats(planes, *tabs), lsc_feat.plain(planes, *tabs))
 
 
-@pytest.mark.parametrize("K", [300, 6000])   # shared-memory bins; global
+@pytest.mark.parametrize("K", [300, 6000])
 @pytest.mark.parametrize("wrow", [None, 10])
 def test_fsegsum_kernel_matches_plain(cuda, rng, K, wrow):
     N, V = 100003, 11
@@ -232,10 +236,8 @@ def test_fsegsum_kernel_matches_plain(cuda, rng, K, wrow):
     vals = torch.from_numpy(rng.normal(size=(V, N)).astype(np.float32)).to(
         cuda)
     got = fsegsum.float_segsum(ids, mask, vals, K, wrow)
-    ref = fsegsum.plain(ids, mask, vals, K, wrow)
-    bound = 1e-5 * fsegsum.plain(ids, mask, vals.abs(), K, wrow)
-    torch.cuda.synchronize()
-    assert bool(((got - ref).abs() <= bound).all())
+    _eq(got, fsegsum.plain(ids.cpu(), mask.cpu(), vals.cpu(), K, wrow))
+    _eq(got, fsegsum.float_segsum(ids, mask, vals, K, wrow))
 
 
 @pytest.mark.parametrize("cls", [SlicRealDist, SlicRealDistL2,
@@ -276,3 +278,120 @@ def test_float_golden_on_gpu(cuda, name, variant):
                              params, cuda)
     agree = float((res.labels == g[name]).mean())
     assert agree >= (0.999 if variant == "lsc" else 1.0), agree
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("stride,rem", [(3, 0), (3, 2), (1, 0)])
+def test_slic_update_masked_kernel_matches_plain(cuda, rng, B, stride, rem):
+    H, W, K = 131, 250, 77
+    a = rng.integers(0, K, size=(B, H, W)).astype(np.int32)
+    a[rng.random((B, H, W)) < 0.05] = UNASSIGNED
+    a = torch.from_numpy(a).to(cuda)
+    planes = torch.from_numpy(rng.integers(0, 256, size=(3, B, H, W)).astype(
+        np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((B, H, W)) < 0.6).to(cuda)
+    if B == 1:
+        a, planes, mask = a[0], planes[:, 0].contiguous(), mask[0]
+    _eq(segsum.slic_update_masked(a, planes, mask, K, stride, rem),
+        segsum.slic_update_masked_plain(a, planes, mask, K, stride, rem))
+
+
+def test_framed_segment_sum_kernel_matches_plain(cuda, rng):
+    B, Nf, V, MF = 4, 30011, 2, 5000
+    ids = torch.from_numpy(np.sort(rng.integers(0, MF + 3, size=(B, Nf)),
+                                   1).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.integers(0, 1 << 20, size=(V, B, Nf)).astype(
+        np.int32)).to(cuda)
+    _eq(segsum.framed_segment_sum(ids, vals, MF),
+        segsum.framed_segment_sum_plain(ids, vals, MF))
+
+
+@pytest.mark.parametrize("variant", ["standard", "real", "real_l2",
+                                     "real_noq"])
+@pytest.mark.parametrize("stride,rem", [(3, 1), (1, 0)])
+def test_frame_axis_kernels_match_plain(cuda, rng, variant, stride, rem):
+    B, H, W, K = 3, 123, 217, 57
+    cfg = StaticConfig(H=H, W=W, K=K, variant=variant)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    frames = rng.integers(0, 256, size=(B, H, W, 3)).astype(np.uint8)
+    sts = [tcl.initialize_clusters(f, K) for f in frames]
+    st = tcl.clusters_from_numpy(*(np.stack(xs) for xs in zip(
+        *(s.fields() for s in sts)))).to_torch(cuda)
+    st = st.replace(y=st.y + 0.37, x=st.x + 0.61)
+    planes, st, _ = pipeline.stage_setup(torch.from_numpy(frames).to(cuda),
+                                         st, cfg, scal)
+    cand, _ = pipeline.build_candidates_batched(st.y, st.x, st.is_active, cfg)
+    table = pipeline.center_table(st)
+    old = torch.from_numpy(rng.integers(0, K, size=(B, H, W)).astype(
+        np.int32)).to(cuda)
+    outs = []
+    for kern in (True, False):
+        a = old.clone()
+        if variant == "standard":
+            md = torch.zeros((B, H, W), dtype=torch.int32, device=cuda)
+            (assign.assign if kern else assign.plain)(
+                planes, table, cand, a, scal.coef, cfg.S, stride, rem, True,
+                md)
+        else:
+            md = torch.zeros((B, H, W), device=cuda)
+            (assign_float.assign_float if kern else assign_float.plain)(
+                planes, table, cand, a, scal.coef, cfg.S, stride, rem,
+                variant, True, md)
+        outs.append((a, md))
+    _eq(outs[0][0], outs[1][0])
+    _eq(outs[0][1], outs[1][1])
+    a = outs[0][0]
+    _eq(segsum.slic_update(a, planes, K, stride, rem),
+        segsum.slic_update_plain(a, planes, K, stride, rem))
+
+
+def _frames(rng, n, H=200, W=300):
+    return np.stack([rng.integers(0, 256, size=(H // 10, W // 10, 3)).repeat(
+        10, 0).repeat(10, 1).astype(np.uint8) for _ in range(n)])
+
+
+@pytest.mark.parametrize("cls", [SlicAvx2, SlicRealDist])
+def test_preemptive_on_gpu_matches_cpu(cuda, rng, cls):
+    frames = _frames(rng, 2)
+    kw = dict(num_components=150, preemptive=True, preemptive_thres=0.2)
+    gpu, cpu = cls(device=cuda, **kw), cls(device="cpu", **kw)
+    for f in frames:
+        np.testing.assert_array_equal(gpu.iterate(f), cpu.iterate(f))
+        np.testing.assert_array_equal(gpu.slic_model.to_yxmrgb(),
+                                      cpu.slic_model.to_yxmrgb())
+
+
+def test_lsc_preemptive_on_gpu_matches_cpu(cuda, rng):
+    frame = _frames(rng, 1)[0]
+    kw = dict(num_components=150, preemptive=True, preemptive_thres=0.2)
+    gpu, cpu = LSCAvx2(device=cuda, **kw), LSCAvx2(device="cpu", **kw)
+    agree = float((gpu.iterate(frame) == cpu.iterate(frame)).mean())
+    assert agree >= 0.999, agree
+
+
+@pytest.mark.parametrize("mode,variant,preemptive", [
+    ("stack", "standard", False), ("stack", "standard", True),
+    ("stack", "real_noq", False), ("map", "standard", False)])
+def test_batched_on_gpu_matches_cpu(cuda, rng, mode, variant, preemptive):
+    batches = [_frames(rng, 3) for _ in range(2)]
+    kw = dict(num_components=150, variant=variant, preemptive=preemptive,
+              batch_mode=mode)
+    gpu, cpu = BatchedSlic(device=cuda, **kw), BatchedSlic(device="cpu", **kw)
+    for frames in batches:
+        _eq(gpu.iterate(frames), cpu.iterate(frames))
+    for f in ("y", "x", "r", "g", "b", "num_members", "is_updatable"):
+        np.testing.assert_array_equal(getattr(gpu.state, f),
+                                      getattr(cpu.state, f), err_msg=f)
+
+
+def test_preempt_golden_on_gpu(cuda):
+    g = np.load(DATA)
+    image = g["image"]
+    H, W = image.shape[:2]
+    params = RuntimeParams(compactness=10.0, min_size_factor=0.1,
+                           subsample_stride=3, max_iter=10,
+                           preemptive_thres=0.05)
+    res = runner.run_iterate(StaticConfig(H=H, W=W, K=256, preemptive=True),
+                             image, tcl.initialize_clusters(image, 256),
+                             params, cuda)
+    np.testing.assert_array_equal(res.labels, g["std_k256_preempt"])

@@ -132,7 +132,8 @@ def test_public_api_matches_golden(golden):
 def test_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.path.insert(0, %r); import fast_slic_tpu_torch as p; "
-            "import fast_slic_tpu_torch.runner, fast_slic_tpu_torch.kernels; "
+            "import fast_slic_tpu_torch.runner, fast_slic_tpu_torch.kernels, "
+            "fast_slic_tpu_torch.parallel.batch; "
             "assert 'jax' not in [m.split('.')[0] for m, v in "
             "sys.modules.items() if v is not None]; print('ok')" % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -182,7 +183,7 @@ def test_constructor_contracts():
 
 def test_paths_outside_the_slice_raise(image_factory):
     image = image_factory(32, 32)
-    for attr in ("preemptive", "debug_mode", "profile"):
+    for attr in ("debug_mode", "profile"):
         m = SlicModel(4, device="cpu")
         m.initialize(image)
         setattr(m, attr, True)

@@ -12,7 +12,7 @@
   tests/test_golden.py;
 * the runner's candidate-overflow re-run works for them (the golden
   ``real_k256`` also takes the CCA tie escalation);
-* the LSC shims import, and paths outside the port still raise.
+* the LSC shims import and the variant names resolve.
 """
 
 import os
@@ -159,10 +159,3 @@ def test_lsc_shims_and_variant_resolution():
     with pytest.raises(RuntimeError, match="real_dist_type"):
         m._static_config(32, 32)
 
-
-def test_preemptive_still_raises(image_factory):
-    image = image_factory(32, 32)
-    for cls in (SlicRealDist, LSC):
-        slic = cls(num_components=4, preemptive=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="§1.8"):
-            slic.iterate(image)
