@@ -16,15 +16,18 @@ Phases (any failure exits non-zero; no phase's error is caught):
 3. kernels: each kernel against its plain PyTorch version, both on the
    card, at the paths' shapes (1280x720, K=1600, S=24, 16 candidate slots;
    assign, float assign (each variant) and update at stride 3 with each
-   remainder and stride 1; CCA on a real raw assignment of the frame; the
+   remainder and stride 1; CCA on a real raw assignment of the frame (the
+   orphan chase on its selection's tables); the
    LSC features and the f32 segment sum on an LSC state of the frame; on
    four stacked frames after nine preemptive iterations, where some cells
    are inactive: assign, float assign and update with the frame axis, the
    masked update with that pixel mask at B=4 and B=1, and the per-frame
-   segment sum on the CCA values of the four frames); bit-exact (the f32
+   segment sum on the CCA values of the four frames; the f32 segment sum
+   again under frame 0's preemptive mask); bit-exact (the f32
    segment sum against its plain version on the CPU, whose order of
    addition it keeps; on the card index_add_ adds with float atomics), with
-   times, each kernel's
+   times, the host time of a lookup, chase and f32 segment-sum call, each
+   kernel's
    bound (the bytes it must move over 3.35 TB/s or its operations over
    67 TFLOP/s, the larger) and, where one PyTorch call computes the same
    function, that call's time;
@@ -95,15 +98,19 @@ GOLDEN_CASES = {
 
 # the kernels each path must launch
 STANDARD_PATH = ("lab", "assign", "slic_update", "segment_sum",
-                 "connected_components", "lookup")
+                 "connected_components", "lookup", "resolve_orphans")
 FLOAT_PATH = ("lab", "lsc_feat", "assign_float", "slic_update", "fsegsum",
-              "segment_sum", "connected_components", "lookup")
+              "segment_sum", "connected_components", "lookup",
+              "resolve_orphans")
 PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
                    "slic_update_masked", "fsegsum", "segment_sum",
-                   "connected_components", "lookup")
+                   "connected_components", "lookup", "resolve_orphans")
 BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
-              "connected_components", "lookup")
+              "connected_components", "lookup", "resolve_orphans")
+# device kernels of the redesigned calls, printed in every profile
+PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
+                  "fs_scan", "fs_scatter", "fs_sum")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
@@ -175,6 +182,22 @@ def time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_us(fn, reps: int = 1000) -> float:
+    """Host microseconds a call of fn: the host clock over reps calls after
+    a synchronize, with no synchronize inside.  Where a call's device time
+    exceeds its host time, the host waits on the launch queue and this
+    reads the device's rate instead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def paired_times(kernel_fn, plain_fn, reps: int, plain_reps: int):
@@ -277,7 +300,8 @@ def kernel_phase(dev, frame, K: int, res: Results):
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
     from fast_slic_tpu_torch.kernels import assign, cca, lab, segsum
-    from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
+    from fast_slic_tpu_torch.ops.cca import (cca_parts, leader_ranks,
+                                             orphan_tables, segsum_values)
     from fast_slic_tpu_torch.ops.cielab import lab_tables
 
     H, W = frame.shape[:2]
@@ -355,6 +379,20 @@ def kernel_phase(dev, frame, K: int, res: Results):
     res.time("lookup", lambda: cca.lookup(L, rank),
              lambda: cca.lookup_plain(L, rank), 8 * n + nbytes(rank), n,
              library_fn=lambda: rank[L_long])
+    # the orphan chase on the tables of this frame's selection
+    _, areas, target, _ = cca_parts(raw)
+    sub, ptrs, _ = orphan_tables(areas, target, ncomp, K, int(scal.thres))
+    res.check("resolve_orphans",
+              max_abs_err(cca.resolve_orphans(sub, ptrs),
+                          cca.resolve_orphans_plain(sub, ptrs)))
+    res.time("resolve_orphans", lambda: cca.resolve_orphans(sub, ptrs),
+             lambda: cca.resolve_orphans_plain(sub, ptrs), 12 * n, n)
+    log("kernel phase: %d of %d components dropped (orphans)"
+        % (int((sub == UNASSIGNED).sum()), int(ncomp)))
+    log("host: lookup %.2f us a call, resolve_orphans %.2f us a call "
+        "(host clock over 1000 calls)"
+        % (host_us(lambda: cca.lookup(L, rank)),
+           host_us(lambda: cca.resolve_orphans(sub, ptrs))))
     comp2 = cca.lookup_plain(L, rank).reshape(H, W)
     vals = segsum_values(comp2, is_leader).contiguous()
     ids = comp2.reshape(-1)
@@ -369,14 +407,15 @@ def kernel_phase(dev, frame, K: int, res: Results):
                  (2, n + 1), dtype=torch.int32, device=dev).index_add_(
                      1, ids_long, vals))
     log("kernel phase: raw assignment has %d components" % int(ncomp))
-    float_kernel_phase(dev, image, K, res)
+    return float_kernel_phase(dev, image, K, res)
 
 
 def float_kernel_phase(dev, image, K: int, res: Results):
     """The float path's kernels vs their plain versions: the float assign
     of each variant on a mid-loop state of that variant (setup and three
     loop iterations through the kernels), and LSC's colour features and f32
-    segment sum on the LSC state."""
+    segment sum on the LSC state.  Returns the segment sum's arguments
+    (ids, mask, vals)."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig
@@ -460,15 +499,20 @@ def float_kernel_phase(dev, image, K: int, res: Results):
              library_fn=lambda: torch.zeros(
                  (11, K + 1), device=dev).index_add_(1, ids_long, vals))
     log("kernel phase: float path at N=%d segment-sum pixels" % Ns)
+    log("host: fsegsum %.2f us a call (host clock over 1000 "
+        "calls)" % host_us(lambda: fsegsum.float_segsum(ids, mask, vals, K, 10)))
+    return ids, mask, vals
 
 
-def frame_kernel_phase(dev, frames, K: int, res: Results):
+def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
     """The kernels with a frame axis and the two kernels of the preemptive
     and stacked paths, on four stacked frames after nine preemptive loop
     iterations (the pixel mask then has inactive cells): assign, float
     assign (real, real_l2, real_noq) and update over the B frames, the
     masked update at B=4 and B=1, each at stride 3 with each remainder and
-    at stride 1, and the per-frame segment sum on the frames' CCA values."""
+    at stride 1, and the per-frame segment sum on the frames' CCA values;
+    and the f32 segment sum ``fseg`` (ids, mask, vals of the LSC state)
+    again with frame 0's preemptive mask."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
@@ -572,6 +616,21 @@ def frame_kernel_phase(dev, frames, K: int, res: Results):
             else:
                 log_times("slic_update_masked B=%d at stride %d"
                           % (nb, stride), *timed)
+
+    # LSC's segment sum under frame 0's preemptive mask (rows 0::3), beside
+    # the unmasked call
+    from fast_slic_tpu_torch.kernels import fsegsum
+    ids, fmask, vals = fseg
+    pmask = fmask & mask[0, 0::3].reshape(-1).to(torch.int32)
+    got = fsegsum.float_segsum(ids, pmask, vals, K, 10)
+    res.check("fsegsum", max_abs_err(got.cpu(), fsegsum.plain(
+        ids.cpu(), pmask.cpu(), vals.cpu(), K, 10)))
+    masked_ms, unmasked_ms = paired_times(
+        lambda: fsegsum.float_segsum(ids, pmask, vals, K, 10),
+        lambda: fsegsum.float_segsum(ids, fmask, vals, K, 10), 50, 50)
+    log("kernel fsegsum under the preemptive mask (%.4f of the pixels "
+        "kept): %.4f ms, unmasked %.4f ms"
+        % (float(pmask.float().mean()), masked_ms, unmasked_ms))
 
     # the per-frame segment sum on the CCA values of the four frames
     st = st.replace(is_active=torch.ones_like(st.is_active))
@@ -859,9 +918,10 @@ def profile_phase(name: str, warm, run, frames: int = 1):
         % (name, wall_us, busy, 100 * busy / wall_us,
            100 - 100 * busy / wall_us, sum(r[1] for r in rows), frames,
            wall_us / frames, busy / frames))
-    for us, count, key in rows[:20]:
-        log("profile %s: %10.1f us %5d x %8.1f us  %s"
-            % (name, us, count, us / count, key[:90]))
+    for i, (us, count, key) in enumerate(rows):
+        if i < 20 or any(k in key for k in PROFILE_ALWAYS):
+            log("profile %s: %10.1f us %5d x %8.1f us  %s"
+                % (name, us, count, us / count, key[:90]))
 
 
 def main() -> int:
@@ -886,8 +946,8 @@ def main() -> int:
     more = make_frames(2 * BATCH, H720, W720, seed=1)
     batches = [np.stack(more[:BATCH]), np.stack(more[BATCH:])]
     res = Results()
-    kernel_phase(dev, frames[0], K720, res)
-    frame_kernel_phase(dev, list(batches[0]), K720, res)
+    fseg = kernel_phase(dev, frames[0], K720, res)
+    frame_kernel_phase(dev, list(batches[0]), K720, res, fseg)
     res.log()
 
     counts = {}
@@ -918,6 +978,8 @@ def main() -> int:
         missing = [k for k in need if counts[path][k] <= 0]
         require(not missing, "kernels never launched on the %s path: %s"
                 % (path, missing))
+    log("slice: lookup launches per standard-path frame %r"
+        % (counts["standard"]["lookup"] / len(frames)))
 
     golden_phase(dev)
     if "--profile" in sys.argv[1:]:

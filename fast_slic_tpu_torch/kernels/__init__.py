@@ -41,6 +41,10 @@ KERNELS = (
     Kernel("lookup", _cca.lookup, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:300"),
+    # the chase that called the lookup in a loop, in one launch
+    Kernel("resolve_orphans", _cca.resolve_orphans, "cuda",
+           "fast_slic_tpu_torch/csrc/cca.cu",
+           "fast_slic_tpu/pallas/segsum_tpu.py:300"),
     Kernel("lsc_feat", _lsc_feat.lsc_color_feats, "cuda",
            "fast_slic_tpu_torch/csrc/lsc_feat.cu",
            "fast_slic_tpu/pallas/lut_tpu.py:321"),

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float
 
 # C signatures of the entry points (every one returns cudaError_t as int)
@@ -47,10 +48,11 @@ _SIGNATURES = {
     "fstt_framed_segment_sum": [P, P, P, I, I, I, I, P],
     "fstt_cc": [P, P, I, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
+    "fstt_resolve_orphans": [P, P, P, I, P],
     "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,
                           I, I, I, P],
     "fstt_lsc_feat": [P, P, P, I, P],
-    "fstt_fsegsum": [P, P, P, P, P, I, I, I, I, P],
+    "fstt_fsegsum": [P, P, P, P, P, LL, I, I, I, I, P],
 }
 
 
@@ -101,6 +103,10 @@ def build(force: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+# entry point name -> its ctypes function, filled once when the library loads
+FUNCS: dict = {}
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
@@ -110,30 +116,40 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        FUNCS[name] = fn
     return lib
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream on the current device, as an int: the
+    raw handle that ``torch.cuda.current_stream().cuda_stream`` also gives,
+    without building a Stream object, which costs several microseconds a
+    call (``scripts/host_cost.py``)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def launch(name: str, *args) -> None:
     """Call one C entry point on PyTorch's current stream; raise if the
-    launch was refused."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+    launch was refused.  Pointers are passed as ints (``t.data_ptr()``),
+    which the ``c_void_p`` argtypes convert."""
+    fn = FUNCS.get(name)
+    if fn is None:
+        library()
+        fn = FUNCS[name]
+    err = fn(*args, stream())
     if err != 0:
         raise RuntimeError("CUDA kernel %s failed: cudaError %d" % (name, err))
 
 
-def ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def check(t: torch.Tensor, name: str, dtype, device, shape=None):
-    """Validate a tensor before its pointer is handed to a kernel."""
-    if t.dtype != dtype:
+    """Validate a tensor before its pointer is handed to a kernel: dtype,
+    CUDA device and its index, contiguity and (if given) shape."""
+    if t.dtype is not dtype:
         raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
-    if t.device != device:
+    if not t.is_cuda or t.get_device() != device.index:
         raise ValueError("%s must be on %s, got %s" % (name, device, t.device))
     if not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError("%s must have shape %s, got %s"
                          % (name, tuple(shape), tuple(t.shape)))

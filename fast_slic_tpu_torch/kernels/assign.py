@@ -125,9 +125,9 @@ def assign(planes, table, cand, assignment, coef, S: int, stride: int,
     md = None
     if min_dists is not None:
         _lib.check(min_dists, "min_dists", torch.int32, dev, assignment.shape)
-        md = _lib.ptr(min_dists)
-    _lib.launch("fstt_assign", _lib.ptr(planes), _lib.ptr(table),
-                _lib.ptr(cand), _lib.ptr(assignment), md,
+        md = min_dists.data_ptr()
+    _lib.launch("fstt_assign", planes.data_ptr(), table.data_ptr(),
+                cand.data_ptr(), assignment.data_ptr(), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 int(bool(manhattan)), table.shape[-2], B)
     assign.launches += 1

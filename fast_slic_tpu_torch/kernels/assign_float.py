@@ -173,13 +173,13 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
     if variant == VARIANT_LSC:
         _lib.check(feats, "feats", torch.float32, dev)
         _lib.check(cent, "cent", torch.float32, dev)
-        fp, cp = _lib.ptr(feats), _lib.ptr(cent)
+        fp, cp = feats.data_ptr(), cent.data_ptr()
     if min_dists is not None:
         _lib.check(min_dists, "min_dists", torch.float32, dev,
                    assignment.shape)
-        md = _lib.ptr(min_dists)
-    _lib.launch("fstt_assign_float", _lib.ptr(planes), fp, _lib.ptr(table),
-                cp, _lib.ptr(cand), _lib.ptr(assignment), md,
+        md = min_dists.data_ptr()
+    _lib.launch("fstt_assign_float", planes.data_ptr(), fp, table.data_ptr(),
+                cp, cand.data_ptr(), assignment.data_ptr(), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 _VARIANT_CODE[variant], int(bool(manhattan)),
                 table.shape[-2], B)

@@ -6,7 +6,8 @@ on the CPU adds index by index.  A CPU tensor goes to it; a CUDA tensor
 launches the kernel, which sums every bin in the same pixel order, so the
 kernel equals the plain version on the CPU bit for bit.  (On the card,
 ``index_add_`` adds with float atomics in an order that changes from run
-to run.)
+to run.)  The kernel leaves masked pixels out, which changes no bit for
+finite ``vals``: a masked pixel adds +-0 to a sum that starts at +0.0.
 """
 
 from __future__ import annotations
@@ -16,6 +17,19 @@ import torch
 from . import _lib
 
 __all__ = ["float_segsum", "plain"]
+
+# csrc/fsegsum.cu's tile of pixels (TILE) and its limits (MAX_ROWS, bins)
+_TILE = 2048
+MAX_ROWS = 16
+MAX_BINS = 65536
+
+
+def scratch_size(n: int, bins: int) -> int:
+    """int32 entries of the kernel's scratch: per-(tile, bin) counts, the
+    per-32-bin totals, the bins' starts, and two [n] arrays (the pixels'
+    ranks, the pixel indices grouped by bin)."""
+    tiles = max(1, -(-n // _TILE))
+    return tiles * bins + -(-bins // 32) + bins + 1 + 2 * n
 
 
 def _check_args(ids, mask, vals, num_segments, wrow):
@@ -46,9 +60,10 @@ def plain(ids, mask, vals, num_segments: int, wrow=None):
 
 def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
     """Dispatch the f32 segment sum by device; see :func:`plain`.  On the
-    card a stable sort groups the pixel indices by bin (masked pixels to
-    bin num_segments, as in :func:`plain`) and the kernel sums each bin's
-    run in pixel order."""
+    card one call groups the unmasked pixels by bin with a stable counting
+    sort and sums each bin's run in pixel order (``csrc/fsegsum.cu``); it
+    takes finite ``vals`` with at most 16 rows and at most 65535
+    segments."""
     dev = ids.device
     if dev.type == "cpu":
         return plain(ids, mask, vals, num_segments, wrow)
@@ -60,14 +75,17 @@ def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
     _lib.check(vals, "vals", torch.float32, dev)
     V, N = vals.shape
     bins = num_segments + 1
-    sorted_ids, order = torch.sort(torch.where(mask != 0, ids, num_segments),
-                                   stable=True)
-    starts = torch.searchsorted(
-        sorted_ids, torch.arange(bins + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
-    out = torch.empty((V, bins), dtype=torch.float32, device=dev)
-    _lib.launch("fstt_fsegsum", _lib.ptr(order), _lib.ptr(starts),
-                _lib.ptr(mask), _lib.ptr(vals), _lib.ptr(out), N, V, bins,
+    if not 1 <= V <= MAX_ROWS or bins > MAX_BINS:
+        raise ValueError("the kernel takes 1 to %d rows and at most %d "
+                         "segments, got %d and %d"
+                         % (MAX_ROWS, MAX_BINS - 1, V, num_segments))
+    # one allocation: the sums, then the int32 scratch (4-byte words both)
+    n_scratch = scratch_size(N, bins)
+    buf = torch.empty(V * bins + n_scratch, dtype=torch.int32, device=dev)
+    out = buf[:V * bins].view(torch.float32).view(V, bins)
+    _lib.launch("fstt_fsegsum", ids.data_ptr(), mask.data_ptr(),
+                vals.data_ptr(), out.data_ptr(),
+                buf.data_ptr() + 4 * V * bins, n_scratch, N, V, bins,
                 -1 if wrow is None else int(wrow))
     float_segsum.launches += 1
     return out

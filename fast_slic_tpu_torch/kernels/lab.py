@@ -28,8 +28,8 @@ def rgb_to_lab_planar(image: torch.Tensor) -> torch.Tensor:
     H, W, _ = image.shape
     srgb, cb, lab = lab_tables(image.device)
     out = torch.empty((3, H, W), dtype=torch.int32, device=image.device)
-    _lib.launch("fstt_lab", _lib.ptr(image), _lib.ptr(srgb), _lib.ptr(cb),
-                _lib.ptr(lab), _lib.ptr(out), H * W)
+    _lib.launch("fstt_lab", image.data_ptr(), srgb.data_ptr(), cb.data_ptr(),
+                lab.data_ptr(), out.data_ptr(), H * W)
     rgb_to_lab_planar.launches += 1
     return out
 

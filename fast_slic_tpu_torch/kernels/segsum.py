@@ -84,11 +84,11 @@ def _launch_update(name, assignment, planes, mask, K, stride, rem):
     B = assignment.shape[0] if assignment.ndim == 3 else 1
     H, W = assignment.shape[-2:]
     out = torch.zeros((6, B * K), dtype=torch.int32, device=dev)
-    args = [_lib.ptr(assignment), _lib.ptr(planes)]
+    args = [assignment.data_ptr(), planes.data_ptr()]
     if mask is not None:
         _lib.check(mask, "mask", torch.bool, dev)
-        args.append(_lib.ptr(mask))
-    _lib.launch(name, *args, _lib.ptr(out), H, W, K, B, stride, rem)
+        args.append(mask.data_ptr())
+    _lib.launch(name, *args, out.data_ptr(), H, W, K, B, stride, rem)
     return out
 
 
@@ -157,8 +157,8 @@ def segment_sum(ids, vals, num_segments: int):
     _lib.check(vals, "vals", torch.int32, dev)
     V, N = vals.shape
     out = torch.zeros((V, num_segments + 1), dtype=torch.int32, device=dev)
-    _lib.launch("fstt_segment_sum", _lib.ptr(ids), _lib.ptr(vals),
-                _lib.ptr(out), N, V, num_segments + 1)
+    _lib.launch("fstt_segment_sum", ids.data_ptr(), vals.data_ptr(),
+                out.data_ptr(), N, V, num_segments + 1)
     segment_sum.launches += 1
     return out
 
@@ -203,8 +203,8 @@ def framed_segment_sum(ids, vals, num_segments_f: int):
     _lib.check(vals, "vals", torch.int32, dev)
     V, B, Nf = vals.shape
     out = torch.zeros((B, V, num_segments_f), dtype=torch.int32, device=dev)
-    _lib.launch("fstt_framed_segment_sum", _lib.ptr(ids), _lib.ptr(vals),
-                _lib.ptr(out), B, Nf, V, num_segments_f)
+    _lib.launch("fstt_framed_segment_sum", ids.data_ptr(), vals.data_ptr(),
+                out.data_ptr(), B, Nf, V, num_segments_f)
     framed_segment_sum.launches += 1
     return out
 

@@ -12,8 +12,8 @@ JAX package's non-TPU branches as the design:
    top-K by area (binary search on the area value), renumbering of the kept
    components in leader order (cca.cpp:212-238).
 4. orphan adoption: a dropped component takes the label of its leader's
-   left (or, at column 0, upper) neighbour (cca.cpp:240-254), resolved by
-   pointer doubling over the component DAG.
+   left (or, at column 0, upper) neighbour (cca.cpp:240-254), resolved over
+   the component DAG by one chase (``kernels.cca.resolve_orphans``).
 
 :func:`enforce_connectivity_framed_flagged` does the same for B stacked
 frames in one pass (the stacked batch mode), each frame as if alone.
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import UNASSIGNED
-from ..kernels.cca import connected_components, lookup
+from ..kernels.cca import connected_components, lookup, resolve_orphans
 from ..kernels.segsum import framed_segment_sum, segment_sum
 
 
@@ -116,25 +116,15 @@ def _topk_keep(areas, kept_pre, k: int, n: int):
     return kept, boundary_tie
 
 
-def _resolve_orphans(substitute, target):
-    """Each UNASSIGNED entry takes the substitute of its target, by pointer
-    doubling to fixpoint (any chain within the table resolves)."""
-    n = substitute.shape[0]
-    for _ in range(max(1, math.ceil(math.log2(max(n, 2))))):
-        if not bool(torch.any(substitute == UNASSIGNED)):
-            break
-        substitute = torch.where(substitute == UNASSIGNED,
-                                 lookup(target, substitute), substitute)
-        target = lookup(target, target)
-    return torch.where(substitute == UNASSIGNED, 0, substitute)
-
-
-def _substitutes(areas, target, num_components, K: int, min_threshold: int):
-    """The selection of cca.cpp:212-254 on the component tables of one
+def orphan_tables(areas, target, num_components, K: int,
+                  min_threshold: int):
+    """The selection of cca.cpp:212-238 on the component tables of one
     frame ([n]) or B frames ([B, n]; frame-local ids): area threshold,
-    top-K by area, renumbering in leader order, the "component 0 always
-    gets a label" rule (cca.cpp:238) and orphan adoption.  Returns
-    (substitute int32 of the tables' shape, boundary-tie flag per frame)."""
+    top-K by area, renumbering in leader order and the "component 0 always
+    gets a label" rule (cca.cpp:238).  Returns the tables of the orphan
+    chase, flattened over the frames -- substitute int32 [B*n] (UNASSIGNED
+    for a dropped component) and target int32 [B*n] (pointers into the
+    flattened tables) -- and the boundary-tie flag per frame."""
     n = areas.shape[-1]
     dev = areas.device
     citoa = torch.arange(n, dtype=torch.int32, device=dev)
@@ -156,9 +146,18 @@ def _substitutes(areas, target, num_components, K: int, min_threshold: int):
     target = torch.where(valid_comp, target, citoa)
     base = torch.arange(areas.numel() // max(n, 1), dtype=torch.int32,
                         device=dev).reshape(areas.shape[:-1] + (1,)) * n
-    substitute = _resolve_orphans(substitute.reshape(-1),
-                                  (target + base).reshape(-1).to(torch.int32))
-    return substitute.to(torch.int32).reshape(areas.shape), boundary_tie
+    return (substitute.reshape(-1),
+            (target + base).reshape(-1).to(torch.int32), boundary_tie)
+
+
+def _substitutes(areas, target, num_components, K: int, min_threshold: int):
+    """:func:`orphan_tables` and the orphan adoption (cca.cpp:240-254) in
+    one chase, with no wait on the host.  Returns (substitute int32 of the
+    tables' shape, boundary-tie flag per frame)."""
+    substitute, pointers, boundary_tie = orphan_tables(
+        areas, target, num_components, K, min_threshold)
+    return (resolve_orphans(substitute, pointers).reshape(areas.shape),
+            boundary_tie)
 
 
 def enforce_connectivity_flagged(assignment, K: int, min_threshold: int):

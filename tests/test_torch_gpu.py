@@ -6,12 +6,16 @@ JAX it runs on its own:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Exact: integer outputs and the float assign's distances must be equal;
+Exact: integer outputs (the orphan chase too, on random orphan DAGs, a
+3000-hop chain, three stacked frames and a real 720p frame's tables) and
+the float assign's distances must be equal;
 the LSC colour features too, and so must the masked update, the per-frame
 segment sum and the frame-axis launches of assign, float assign and
 update.  The f32 segment sum must equal its plain version on the CPU,
 whose order of addition it keeps, and give the same sums on every run
-(on the card, index_add_ adds with float atomics in a changing order).  On the card, the float variants' slices equal the CPU plain
+(on the card, index_add_ adds with float atomics in a changing order),
+also with a preemptive-like mask at 720p, a single bin, empty bins and
+unmasked pixels in the last bin.  On the card, the float variants' slices equal the CPU plain
 path, and LSC's labels agree >= 0.999 (its image-wide f32 sums differ by
 order between the two devices); so do the preemptive grid and the batched
 frames (``BatchedSlic`` in stack and map mode).
@@ -30,6 +34,7 @@ from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.kernels import (assign, assign_float, cca, fsegsum,
                                          lab, lsc_feat, segsum)
+from fast_slic_tpu_torch.ops.cca import cca_parts, orphan_tables
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
@@ -150,12 +155,82 @@ def test_connected_components_kernel_matches_plain(cuda, rng, kind):
     _eq(cca.connected_components(t), cca.connected_components_plain(t))
 
 
-def test_lookup_kernel_matches_plain(cuda, rng):
+@pytest.mark.parametrize("n", ["311x97", 0, 1, 3, 5, "offset"])
+def test_lookup_kernel_matches_plain(cuda, rng, n):
     table = torch.from_numpy(rng.integers(0, 1 << 30, size=7777).astype(
         np.int32)).to(cuda)
-    ids = torch.from_numpy(rng.integers(0, 7777, size=(311, 97)).astype(
+    shape = {"311x97": (311, 97), "offset": (30011,)}.get(n, (n,))
+    ids = torch.from_numpy(rng.integers(0, 7777, size=shape).astype(
         np.int32)).to(cuda)
+    if n == "offset":
+        # a view one int past a 16-byte boundary: the scalar path
+        ids = torch.cat([ids[:1], ids])[1:]
+        assert ids.data_ptr() % 16 == 4
     _eq(cca.lookup(ids, table), cca.lookup_plain(ids, table))
+
+
+def _orphan_dag(rng, n):
+    """Tables as ops.cca.orphan_tables builds them for one frame."""
+    sub = rng.integers(0, n, size=n).astype(np.int32)
+    sub[rng.random(n) < 0.6] = UNASSIGNED
+    sub[0] = 0
+    target = np.zeros(n, np.int32)
+    target[1:] = rng.integers(0, np.arange(1, n))
+    return sub, target
+
+
+def _frame_720p():
+    image = np.load(DATA)["image"]
+    ys = np.arange(720) * image.shape[0] // 720
+    xs = np.arange(1280) * image.shape[1] // 1280
+    return np.ascontiguousarray(image[ys][:, xs])
+
+
+def _raw_720p_orphan_tables(dev):
+    """The orphan-chase tables of a real raw assignment: SlicAvx2's loop at
+    720p, K=1600, then the CCA's selection."""
+    frame = _frame_720p()
+    H, W, K = 720, 1280, 1600
+    cfg = StaticConfig(H=H, W=W, K=K)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    out = pipeline.iterate_graph(torch.from_numpy(frame).to(dev),
+                                 tcl.initialize_clusters(frame, K).to_torch(
+                                     dev), cfg, scal, 10, 3)
+    _, areas, target, ncomp = cca_parts(out.raw_assignment)
+    sub, ptrs, _ = orphan_tables(areas, target, ncomp, K, int(scal.thres))
+    return sub, ptrs
+
+
+@pytest.mark.parametrize("case", ["random", "chain_3000", "stacked_3",
+                                  "unlabelled_loops", "raw_720p"])
+def test_resolve_orphans_kernel_matches_plain(cuda, rng, case):
+    if case == "random":
+        sub, target = _orphan_dag(rng, 70001)
+    elif case == "unlabelled_loops":
+        # dropped entries in loops that reach no label: the walk stops at
+        # its n-hop bound and writes 0, as the plain version does
+        sub, target = _orphan_dag(rng, 3000)
+        loops = rng.choice(np.arange(1, 3000), 200, replace=False)
+        sub[loops] = UNASSIGNED
+        target[loops] = np.roll(loops, 1)
+    elif case == "chain_3000":
+        sub = np.full(3001, UNASSIGNED, np.int32)
+        sub[0] = 7
+        target = np.maximum(np.arange(3001, dtype=np.int32) - 1, 0)
+    elif case == "stacked_3":
+        frames = [_orphan_dag(rng, 4000) for _ in range(3)]
+        sub = np.concatenate([f[0] for f in frames])
+        target = np.concatenate([f[1] + 4000 * i
+                                 for i, f in enumerate(frames)])
+    if case == "raw_720p":
+        sub, target = _raw_720p_orphan_tables(cuda)
+        assert bool((sub == UNASSIGNED).any())
+    else:
+        sub = torch.from_numpy(sub).to(cuda)
+        target = torch.from_numpy(target.astype(np.int32)).to(cuda)
+    got = cca.resolve_orphans(sub, target)
+    _eq(got, cca.resolve_orphans_plain(sub, target))
+    assert not bool((got == UNASSIGNED).any())
 
 
 def test_slice_on_gpu_matches_cpu(cuda, rng):
@@ -235,6 +310,46 @@ def test_fsegsum_kernel_matches_plain(cuda, rng, K, wrow):
     mask = torch.from_numpy((rng.random(N) < 0.9).astype(np.int32)).to(cuda)
     vals = torch.from_numpy(rng.normal(size=(V, N)).astype(np.float32)).to(
         cuda)
+    got = fsegsum.float_segsum(ids, mask, vals, K, wrow)
+    _eq(got, fsegsum.plain(ids.cpu(), mask.cpu(), vals.cpu(), K, wrow))
+    _eq(got, fsegsum.float_segsum(ids, mask, vals, K, wrow))
+
+
+def _fsegsum_case(rng, case):
+    """(ids int32 [N], mask int32 [N], K) of one segment-sum case."""
+    if case == "preemptive_720p":
+        # LSC's call at stride 3: rows 0::3 of a 720p map of 24x24 cells
+        # (K = 1600 clusters), 17 % of the pixels masked in whole 48x48 cells
+        K = 1600
+        yy, xx = np.indices((720, 1280))
+        ids = np.minimum((yy // 24) * 54 + xx // 24, K - 1)
+        ids[rng.random(ids.shape) < 0.02] = K      # unassigned: masked too
+        dead = rng.random((15, 27)) < 0.17
+        mask = ~dead[yy // 48, xx // 48] & (ids != K)
+        return ids[0::3].ravel(), mask[0::3].ravel(), K
+    N = 100003
+    if case == "one_bin":
+        return np.zeros(N, np.int64), rng.random(N) < 0.9, 40
+    if case == "empty_bins":
+        K = 3000
+        return rng.choice([5, 17, 2999], N), rng.random(N) < 0.9, K
+    if case == "unmasked_bin_k":
+        K = 300
+        ids = rng.integers(0, K + 1, N)
+        ids[rng.random(N) < 0.3] = K
+        return ids, rng.random(N) < 0.95, K
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("wrow", [None, 10])
+@pytest.mark.parametrize("case", ["preemptive_720p", "one_bin", "empty_bins",
+                                  "unmasked_bin_k"])
+def test_fsegsum_kernel_cases(cuda, rng, case, wrow):
+    ids, mask, K = _fsegsum_case(rng, case)
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(mask.astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.normal(size=(11, ids.numel())).astype(
+        np.float32)).to(cuda)
     got = fsegsum.float_segsum(ids, mask, vals, K, wrow)
     _eq(got, fsegsum.plain(ids.cpu(), mask.cpu(), vals.cpu(), K, wrow))
     _eq(got, fsegsum.float_segsum(ids, mask, vals, K, wrow))
