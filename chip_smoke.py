@@ -108,9 +108,11 @@ PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
 BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
               "connected_components", "lookup", "resolve_orphans")
-# device kernels of the redesigned calls, printed in every profile
+# device kernels of the redesigned calls and the once-a-frame kernels,
+# printed in every profile
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
-                  "fs_scan", "fs_scatter", "fs_sum")
+                  "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
+                  "lab_kernel", "lsc_feat_kernel")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
@@ -232,6 +234,27 @@ def max_abs_err(a, b):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def update_library(a, planes, mask, K: int, stride: int, rem: int):
+    """One PyTorch call computing the update sums of one frame: an int32
+    ``index_add_`` of the counted pixels' [1, i, j, L, a, b] into [6, K],
+    with the ids and values built here, outside the timed call."""
+    import torch
+    H, W = a.shape
+    rows = torch.arange(rem, H, stride, device=a.device)
+    ar = a[rows]
+    ok = (ar != 0xFFFF) & (ar >= 0) & (ar < K)
+    if mask is not None:
+        ok &= mask[rows]
+    ii = rows[:, None].expand(ar.shape).to(torch.int32)
+    jj = torch.arange(W, device=a.device)[None, :].expand(ar.shape).to(
+        torch.int32)
+    ids = ar[ok].long()
+    vals = torch.stack([torch.ones_like(ar), ii, jj, *planes[:, rows]])[:, ok]
+    vals = vals.contiguous()
+    return lambda: torch.zeros((6, K), dtype=torch.int32,
+                               device=a.device).index_add_(1, ids, vals)
 
 
 def cand_visits(cand, H: int, W: int, S: int, stride: int, rem: int) -> int:
@@ -358,7 +381,9 @@ def kernel_phase(dev, frame, K: int, res: Results):
                      lambda: segsum.slic_update(a_k, planes, K, stride, rem),
                      lambda: segsum.slic_update_plain(a_k, planes, K, stride,
                                                       rem),
-                     16 * P + 24 * K, 6 * P)
+                     16 * P + 24 * K, 6 * P,
+                     library_fn=update_library(a_k, planes, None, K, stride,
+                                               rem))
 
     # CCA kernels on a real raw assignment of the frame
     out = pipeline.iterate_graph(
@@ -612,7 +637,8 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
                          *args, K, stride, rem),
                      17 * nb * P + 24 * nb * K, 6 * active)
             if (nb, stride) == (1, 3):
-                res.time("slic_update_masked", *timed)
+                res.time("slic_update_masked", *timed,
+                         library_fn=update_library(*args, K, stride, rem))
             else:
                 log_times("slic_update_masked B=%d at stride %d"
                           % (nb, stride), *timed)

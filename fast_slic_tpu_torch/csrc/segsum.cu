@@ -15,9 +15,10 @@
 // reduced them with byte-split bf16 matmuls, which limited values to 2^16
 // and needed hi-bucket band guards (masked pixels kept the tile's minimum
 // id) and a per-frame VMEM output block.  Hopper has native int32 atomics:
-// each thread adds its pixel's values into a zeroed buffer.  Integer
-// addition is associative, so the result is exact and independent of the
-// order the atomics land in, and none of those devices is needed.
+// the segment sums add each pixel's values into a zeroed buffer, the update
+// first sums a tile's pixels on chip (below).  Integer addition is
+// associative, so the result is exact and independent of the order the
+// atomics land in, and none of those devices is needed.
 //
 // slic_update builds [count, i, j, L, a, b] in-kernel from the
 // full-resolution assignment and planes, for the rows i % stride == rem; a
@@ -28,10 +29,32 @@
 // [3, B, H, W] planes, [B, H, W] mask): the frame is blockIdx.z, rows stay
 // frame-local, and frame f's cluster k lands in bin f*K + k.
 //
-// Bound on the card: atomic throughput into L2.  Neighbouring pixels mostly
-// share a cluster (or component), so the atomics of a warp contend on a few
-// addresses.  This first version issues them directly; warp aggregation or
-// per-block shared-memory bins are the next step.
+// The update's bound on the card is its reads: 16 bytes a pixel (17 with
+// the mask), 4.9 MB a call at 720p stride 3, ~1.5 us at 3.35 TB/s and
+// mostly from L2 on the main path.  One global atomic a value and pixel
+// (1.84 M a call into 9,600 addresses) serialised in L2 instead, because a
+// superpixel is ~24 px wide and a warp's neighbouring pixels hit the same
+// one to three addresses: ~47x the bound.  So a tile's sums are gathered
+// on chip before they reach device memory:
+//   - a block takes a tile of 128 columns x 8 subsampled rows of one frame,
+//     one warp a row, four consecutive pixels a lane (16-byte loads when
+//     W % 4 == 0 and the pointers are aligned, scalar loads otherwise), and
+//     a lane sums its runs of equal ids in registers;
+//   - each run adds to a 256-slot open-addressed table in shared memory
+//     (an id key and six sums a slot, atomicCAS on the key, shared
+//     atomicAdd on the sums), and after __syncthreads each used slot adds
+//     its six sums to device memory: ~10-20 clusters a tile where there
+//     were 1024 pixels.
+// An id that finds no slot within 16 probes (random ids) adds straight to
+// device memory, so every input is exact and none needs spatial locality.
+// Sums are unsigned, so every regrouping wraps mod 2^32 as the plain
+// version's int64 sums cast to int32 do.  Summing a warp's equal ids first
+// (__match_any_sync, __reduce_add_sync) cost more than the shared atomics
+// it saves: it made the kernel 3-5x slower on the H100 (PERF.md,
+// scripts/update_variants.py).  The update runs within 1.5x of a kernel
+// that only loads the same tiles (3.6 against 3.0 us a launch at 720p
+// stride 3): what bounds it now is one wave of loads and the launch, not
+// the sums.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,30 +63,131 @@ namespace {
 
 constexpr int kUnassigned = 0xFFFF;
 
-template <bool kMasked>
-__global__ void slic_update_kernel(const int32_t* __restrict__ assignment,
-                                   const int32_t* __restrict__ planes,
-                                   const uint8_t* __restrict__ mask,
-                                   int32_t* __restrict__ out, int H, int W,
-                                   int K, int B, int stride, int rem) {
-    int j = blockIdx.x * blockDim.x + threadIdx.x;
-    int i = rem + blockIdx.y * stride;
-    int f = blockIdx.z;
-    if (j >= W || i >= H) return;
-    long long n = (long long)H * W;
-    long long p = f * n + (long long)i * W + j;  // pixel of the [B, H, W] stack
-    if (kMasked && !mask[p]) return;
-    int k = assignment[p];
-    if (k == kUnassigned || k < 0 || k >= K) return;
-    long long bins = (long long)B * K;
-    long long cs = B * n;  // channel stride of planes [3, B, H, W]
-    int32_t* o = out + (long long)f * K + k;
-    atomicAdd(o, 1);
-    atomicAdd(o + bins, i);
-    atomicAdd(o + 2 * bins, j);
-    atomicAdd(o + 3 * bins, planes[p]);
-    atomicAdd(o + 4 * bins, planes[cs + p]);
-    atomicAdd(o + 5 * bins, planes[2 * cs + p]);
+constexpr int kUpdRows = 8;                  // subsampled rows a block
+constexpr int kUpdCols = 128;                // columns a block: 32 lanes x 4
+constexpr int kUpdThreads = 32 * kUpdRows;   // one warp a row
+constexpr int kSlots = 256;                  // shared table slots a block
+constexpr int kProbes = 16;                  // probes before device atomics
+constexpr int kNone = -1;                    // empty slot; a dropped pixel
+
+// Add one run's [count, Σi, Σj, ΣL, Σa, Σb] to the block's table, or to
+// device memory (o: its column of out) when no slot is found.  A slot's key
+// only ever changes from kNone to an id, so a key read as set is final.
+__device__ __forceinline__ void table_add(int* keys, unsigned (*sums)[kSlots],
+                                          unsigned* o, long long bins, int id,
+                                          const unsigned (&v)[6]) {
+    int s = id & (kSlots - 1);
+    for (int probe = 0; probe < kProbes; ++probe) {
+        int cur = ((volatile int*)keys)[s];
+        if (cur == kNone) cur = atomicCAS(keys + s, kNone, id);
+        if (cur == kNone || cur == id) {
+            for (int c = 0; c < 6; ++c) atomicAdd(&sums[c][s], v[c]);
+            return;
+        }
+        s = (s + 1) & (kSlots - 1);
+    }
+    for (int c = 0; c < 6; ++c) atomicAdd(o + c * bins, v[c]);
+}
+
+// kVec: W % 4 == 0, assignment and planes 16-byte and mask 4-byte aligned,
+// so a lane's four pixels load as one int4 a plane (and one word of mask)
+template <bool kMasked, bool kVec>
+__global__ void __launch_bounds__(kUpdThreads)
+slic_update_kernel(const int32_t* __restrict__ assignment,
+                   const int32_t* __restrict__ planes,
+                   const uint8_t* __restrict__ mask,
+                   unsigned* __restrict__ out, int H, int W, int K, int B,
+                   int stride, int rem) {
+    __shared__ int keys[kSlots];
+    __shared__ unsigned sums[6][kSlots];
+    for (int s = threadIdx.x; s < kSlots; s += kUpdThreads) {
+        keys[s] = kNone;
+        for (int c = 0; c < 6; ++c) sums[c][s] = 0;
+    }
+    __syncthreads();
+
+    const int f = blockIdx.z;
+    const int i = rem + (blockIdx.y * kUpdRows + (threadIdx.x >> 5)) * stride;
+    const int j0 = blockIdx.x * kUpdCols + 4 * (threadIdx.x & 31);
+    const long long bins = (long long)B * K;
+    if (i < H) {
+        const long long n = (long long)H * W;
+        const long long cs = B * n;  // channel stride of planes [3, B, H, W]
+        const long long p = f * n + (long long)i * W + j0;
+        int id[4] = {kNone, kNone, kNone, kNone};
+        unsigned l[4] = {0, 0, 0, 0}, a[4] = {0, 0, 0, 0},
+                 b[4] = {0, 0, 0, 0};
+        if (kVec) {
+            if (j0 < W) {  // W % 4 == 0: the four pixels are in the row
+                int4 k = __ldg(reinterpret_cast<const int4*>(assignment + p));
+                int4 x = __ldg(reinterpret_cast<const int4*>(planes + p));
+                int4 y = __ldg(reinterpret_cast<const int4*>(planes + cs + p));
+                int4 z = __ldg(
+                    reinterpret_cast<const int4*>(planes + 2 * cs + p));
+                id[0] = k.x; id[1] = k.y; id[2] = k.z; id[3] = k.w;
+                l[0] = x.x; l[1] = x.y; l[2] = x.z; l[3] = x.w;
+                a[0] = y.x; a[1] = y.y; a[2] = y.z; a[3] = y.w;
+                b[0] = z.x; b[1] = z.y; b[2] = z.z; b[3] = z.w;
+                if (kMasked) {
+                    unsigned m = __ldg(
+                        reinterpret_cast<const unsigned*>(mask + p));
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        if (!((m >> (8 * q)) & 0xffu)) id[q] = kNone;
+                }
+            }
+        } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                if (j0 + q < W) {
+                    id[q] = assignment[p + q];
+                    l[q] = planes[p + q];
+                    a[q] = planes[cs + p + q];
+                    b[q] = planes[2 * cs + p + q];
+                    if (kMasked && !mask[p + q]) id[q] = kNone;
+                }
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            if (id[q] == kUnassigned || id[q] < 0 || id[q] >= K) id[q] = kNone;
+
+        // runs of equal ids in the lane: pixel q's suffix sums up to the
+        // end of its run, so a run's first pixel holds the run's sums
+        unsigned c[4], sj[4];
+        c[3] = 1;
+        sj[3] = j0 + 3;
+#pragma unroll
+        for (int q = 2; q >= 0; --q) {
+            bool same = id[q] == id[q + 1];
+            c[q] = 1 + (same ? c[q + 1] : 0);
+            sj[q] = j0 + q + (same ? sj[q + 1] : 0);
+            l[q] += same ? l[q + 1] : 0;
+            a[q] += same ? a[q + 1] : 0;
+            b[q] += same ? b[q + 1] : 0;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            bool head = id[q] != kNone;
+            if (q > 0) head = head && id[q] != id[q - 1];
+            if (head) {
+                // every pixel of the lane is in row i
+                const unsigned v[6] = {c[q], c[q] * (unsigned)i, sj[q], l[q],
+                                       a[q], b[q]};
+                table_add(keys, sums, out + (long long)f * K + id[q], bins,
+                          id[q], v);
+            }
+        }
+    }
+    __syncthreads();
+
+    for (int s = threadIdx.x; s < kSlots; s += kUpdThreads) {
+        int id = keys[s];
+        if (id != kNone) {
+            unsigned* o = out + (long long)f * K + id;
+            for (int c = 0; c < 6; ++c) atomicAdd(o + c * bins, sums[c][s]);
+        }
+    }
 }
 
 __global__ void segment_sum_kernel(const int32_t* __restrict__ ids,
@@ -105,13 +229,16 @@ int launch_update(const void* assignment, const void* planes,
                   int stride, int rem, void* stream) {
     int rows = rem < H ? (H - rem + stride - 1) / stride : 0;
     if (rows > 0 && W > 0 && B > 0) {
-        dim3 threads(128);
-        dim3 blocks((W + threads.x - 1) / threads.x, rows, B);
-        slic_update_kernel<kMasked>
-            <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-                (const int32_t*)assignment, (const int32_t*)planes,
-                (const uint8_t*)mask, (int32_t*)out, H, W, K, B, stride,
-                rem);
+        dim3 blocks((W + kUpdCols - 1) / kUpdCols,
+                    (rows + kUpdRows - 1) / kUpdRows, B);
+        bool vec = W % 4 == 0
+                   && (((uintptr_t)assignment | (uintptr_t)planes) & 15) == 0
+                   && ((uintptr_t)mask & 3) == 0;
+        auto kernel = vec ? &slic_update_kernel<kMasked, true>
+                          : &slic_update_kernel<kMasked, false>;
+        kernel<<<blocks, kUpdThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)assignment, (const int32_t*)planes,
+            (const uint8_t*)mask, (unsigned*)out, H, W, K, B, stride, rem);
     }
     return (int)cudaGetLastError();
 }

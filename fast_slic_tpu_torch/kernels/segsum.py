@@ -12,6 +12,15 @@ The two update sums take one frame (assignment [H, W], planes [3, H, W])
 or B stacked frames (assignment [B, H, W], planes [3, B, H, W]: the JAX
 stacked layout); the output is int32 [6, B*K] with frame f's cluster k at
 column f*K + k ([6, K] for one frame).
+
+The update kernels sum on chip before anything reaches device memory: a
+block takes 128 columns x 8 subsampled rows, a lane sums its runs of equal
+ids (four pixels of a row), and the runs meet in a shared-memory table that
+adds each cluster's six sums to the output once a block.  One global atomic
+a value and pixel had serialised on the few clusters a warp's neighbouring
+pixels share; ids that find the table full still add to device memory
+directly, so random ids are exact too.  What bounds them now is one wave of
+loads and the launch (``scripts/update_variants.py``, ``PERF.md``).
 """
 
 from __future__ import annotations

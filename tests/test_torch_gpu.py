@@ -9,7 +9,10 @@ JAX it runs on its own:
 Exact: integer outputs (the orphan chase too, on random orphan DAGs, a
 3000-hop chain, three stacked frames and a real 720p frame's tables) and
 the float assign's distances must be equal;
-the LSC colour features too, and so must the masked update, the per-frame
+the LSC colour features too, and so must both update sums on each branch
+of their kernels (superpixel-like tiles, one cluster whose sums wrap,
+random ids that overflow the shared table, ragged and misaligned rows,
+empty and full masks), the per-frame
 segment sum and the frame-axis launches of assign, float assign and
 update.  The f32 segment sum must equal its plain version on the CPU,
 whose order of addition it keeps, and give the same sums on every run
@@ -409,6 +412,75 @@ def test_slic_update_masked_kernel_matches_plain(cuda, rng, B, stride, rem):
         a, planes, mask = a[0], planes[:, 0].contiguous(), mask[0]
     _eq(segsum.slic_update_masked(a, planes, mask, K, stride, rem),
         segsum.slic_update_masked_plain(a, planes, mask, K, stride, rem))
+
+
+def _superpixels(rng, B, H, W, S=24):
+    """Superpixel-like assignments [B, H, W] and their K: S x S cells whose
+    borders move by up to S/4 pixels a row and a column, ~5 % 0xFFFF."""
+    GH, GW = -(-H // S), -(-W // S)
+    a = np.empty((B, H, W), np.int32)
+    for f in range(B):
+        di = rng.integers(-(S // 4), S // 4 + 1, size=W)
+        dj = rng.integers(-(S // 4), S // 4 + 1, size=H)
+        ci = np.clip((np.arange(H)[:, None] + di) // S, 0, GH - 1)
+        cj = np.clip((np.arange(W) + dj[:, None]) // S, 0, GW - 1)
+        a[f] = ci * GW + cj
+    a[rng.random(a.shape) < 0.05] = UNASSIGNED
+    return a, GH * GW
+
+
+def _offset(t):
+    """A contiguous copy of t one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# each branch of the update kernels: superpixel tiles (the shared table),
+# one cluster (every lane one group; planes near 2^24, so the int32 sums
+# wrap), random ids over K=4000 (the table overflows to device atomics),
+# W % 4 != 0 and views off the 16-byte boundary (the scalar loads), and an
+# all-zero and an all-one mask
+UPDATE_CASES = ([(c, m) for c in ("superpixels_b1", "superpixels_b3",
+                                  "one_cluster", "random_k4000", "ragged_w",
+                                  "offset") for m in (False, True)]
+                + [("mask_zero", True), ("mask_one", True)])
+
+
+@pytest.mark.parametrize("stride,rem", [(3, 1), (1, 0)])
+@pytest.mark.parametrize("case,masked", UPDATE_CASES)
+def test_slic_update_kernel_cases(cuda, rng, case, masked, stride, rem):
+    B, H, W = {"superpixels_b3": (3, 240, 384), "one_cluster": (1, 300, 512),
+               "random_k4000": (1, 257, 515),
+               "ragged_w": (1, 131, 1277)}.get(case, (1, 240, 640))
+    planes = rng.integers(0, 256, size=(3, B, H, W))
+    if case == "one_cluster":
+        K = 5
+        a = np.full((B, H, W), 3, np.int32)
+        planes += (1 << 24) - 256
+    elif case == "random_k4000":
+        K = 4000
+        a = rng.integers(0, K, size=(B, H, W)).astype(np.int32)
+        a[rng.random(a.shape) < 0.05] = UNASSIGNED
+    else:
+        a, K = _superpixels(rng, B, H, W)
+    mask = rng.random((B, H, W)) < 0.6
+    if case in ("mask_zero", "mask_one"):
+        mask[:] = case == "mask_one"
+    a, planes, mask = (torch.from_numpy(x).to(cuda) for x in (
+        a, planes.astype(np.int32), mask))
+    if B == 1:
+        a, planes, mask = a[0], planes[:, 0].contiguous(), mask[0]
+    if case == "offset":
+        a, planes, mask = _offset(a), _offset(planes), _offset(mask)
+        assert a.data_ptr() % 16 == 4 and mask.data_ptr() % 4 == 1
+    if masked:
+        _eq(segsum.slic_update_masked(a, planes, mask, K, stride, rem),
+            segsum.slic_update_masked_plain(a, planes, mask, K, stride, rem))
+    else:
+        _eq(segsum.slic_update(a, planes, K, stride, rem),
+            segsum.slic_update_plain(a, planes, K, stride, rem))
 
 
 def test_framed_segment_sum_kernel_matches_plain(cuda, rng):

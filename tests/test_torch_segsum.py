@@ -39,9 +39,27 @@ def _assignment(rng):
     return a, planes
 
 
-@pytest.mark.parametrize("stride,rem", [(3, 0), (3, 1), (3, 2), (1, 0)])
-def test_update_matches_update_accumulate(rng, stride, rem):
-    a, planes = _assignment(rng)
+def _superpixels(rng, S=20):
+    """A superpixel-like assignment, the layout the update kernels' tiles
+    gather on chip: S x S cells (20 ids) whose borders move by up to S/4
+    pixels a row and a column, ~7 % 0xFFFF."""
+    GH, GW = -(-H // S), -(-W // S)
+    di = rng.integers(-(S // 4), S // 4 + 1, size=W)
+    dj = rng.integers(-(S // 4), S // 4 + 1, size=H)
+    ci = np.clip((np.arange(H)[:, None] + di) // S, 0, GH - 1)
+    cj = np.clip((np.arange(W) + dj[:, None]) // S, 0, GW - 1)
+    a = (ci * GW + cj).astype(np.int32)
+    a[rng.random((H, W)) < 0.07] = UNASSIGNED
+    planes = rng.integers(0, 256, size=(3, H, W)).astype(np.int32)
+    return a, planes
+
+
+@pytest.mark.parametrize("stride,rem,layout", [
+    pytest.param(s, r, layout, id="%d-%d%s" % (s, r, suffix))
+    for layout, suffix in (("random", ""), ("superpixels", "-superpixels"))
+    for s, r in ((3, 0), (3, 1), (3, 2), (1, 0))])
+def test_update_matches_update_accumulate(rng, stride, rem, layout):
+    a, planes = (_assignment if layout == "random" else _superpixels)(rng)
     cfg = JaxConfig(H=H, W=W, K=K, arch="xla")
     ref = np.asarray(jpipe.update_accumulate(
         jnp.asarray(planes), jnp.asarray(a), cfg, rem, stride))   # [K, 6]
