@@ -21,10 +21,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    LSC features and the f32 segment sum on an LSC state of the frame; on
    four stacked frames after nine preemptive iterations, where some cells
    are inactive: assign, float assign and update with the frame axis, the
-   masked update with that pixel mask at B=4 and B=1, and the per-frame
-   segment sum on the CCA values of the four frames; the f32 segment sum
-   again under frame 0's preemptive mask); bit-exact (the f32
-   segment sum against its plain version on the CPU, whose order of
+   masked update with that pixel mask at B=4 and B=1, and the components
+   and the per-frame segment sum on the four frames' stacked CCA map; the
+   f32 segment sum again under frame 0's preemptive mask); bit-exact (the
+   f32 segment sum against its plain version on the CPU, whose order of
    addition it keeps; on the card index_add_ adds with float atomics), with
    times, the host time of a lookup, chase and f32 segment-sum call, each
    kernel's
@@ -112,7 +112,8 @@ BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
 # printed in every profile
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
-                  "lab_kernel", "lsc_feat_kernel")
+                  "lab_kernel", "lsc_feat_kernel", "assign_kernel",
+                  "cc_local", "cc_seams", "cc_flatten")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
@@ -535,14 +536,16 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
     iterations (the pixel mask then has inactive cells): assign, float
     assign (real, real_l2, real_noq) and update over the B frames, the
     masked update at B=4 and B=1, each at stride 3 with each remainder and
-    at stride 1, and the per-frame segment sum on the frames' CCA values;
-    and the f32 segment sum ``fseg`` (ids, mask, vals of the LSC state)
-    again with frame 0's preemptive mask."""
+    at stride 1, the components on the frames' stacked CCA map and the
+    per-frame segment sum on their CCA values; and the f32 segment sum
+    ``fseg`` (ids, mask, vals of the LSC state) again with frame 0's
+    preemptive mask."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
-    from fast_slic_tpu_torch.kernels import assign, assign_float, segsum
-    from fast_slic_tpu_torch.ops.cca import framed_components, segsum_values
+    from fast_slic_tpu_torch.kernels import assign, assign_float, cca, segsum
+    from fast_slic_tpu_torch.ops.cca import (framed_components, framed_labels,
+                                             segsum_values)
 
     B = len(frames)
     H, W = frames[0].shape[:2]
@@ -658,10 +661,21 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
         "kept): %.4f ms, unmasked %.4f ms"
         % (float(pmask.float().mean()), masked_ms, unmasked_ms))
 
-    # the per-frame segment sum on the CCA values of the four frames
+    # a raw assignment of the four frames (a full assign with every cluster
+    # active): the components on the stacked [B*H, W] map that
+    # framed_components builds from it, then the per-frame segment sum on
+    # its CCA values
     st = st.replace(is_active=torch.ones_like(st.is_active))
     _, raw, _, _ = pipeline.stage_full_assign(planes, st, no_lsc, None,
                                               a0.clone(), cfg, scal)
+    stacked = framed_labels(raw, K)
+    res.check("connected_components", max_abs_err(
+        cca.connected_components(stacked),
+        cca.connected_components_plain(stacked)))
+    log_times("connected_components B=%d on the stacked [%d, %d] map"
+              % (B, B * H, W), lambda: cca.connected_components(stacked),
+              lambda: cca.connected_components_plain(stacked), 8 * B * n,
+              10 * B * n)
     comp, is_leader = framed_components(raw, K)
     vals = segsum_values(comp, is_leader).contiguous()          # [2, B, n]
     ids = comp.reshape(B, n)

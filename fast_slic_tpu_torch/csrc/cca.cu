@@ -7,17 +7,24 @@
 // 4-connected equal-label region with strip-resident segmented doubling,
 // alternating half-shifted strip grids until a fixpoint.  Here the same
 // result -- every pixel labelled with the MINIMUM LINEAR PIXEL INDEX of its
-// region, UNASSIGNED (0xFFFF) being a label like any other -- comes from a
-// union-find with min-root linking (Playne & Hawick's label equivalence;
-// see arXiv 1712.09789 in PAPERS.md) in three passes:
-//   init     parent[p] = p
-//   merge    unite p with its left and upper neighbour where the labels are
-//            equal; atomicMin links the larger root under the smaller
-//   flatten  parent[p] = root(p)
-// A region's minimum pixel only ever points at itself (its parent can only
-// decrease and stays inside the region), so the root is that minimum and
+// region, UNASSIGNED (0xFFFF) being a label like any other -- comes from
+// block-based label equivalence (see arXiv 1712.09789 in PAPERS.md) in
+// three passes:
+//   cc_local    a block labels one 32x32 tile on chip (cc_local below:
+//               row-group scans with run labels from __ballot_sync, then
+//               the recorded label pairs resolved in a few rounds) and
+//               writes each pixel the global index of its piece's minimum
+//               pixel in the tile.  Row-major order inside a tile is the
+//               global order, so that is the piece's smallest index.
+//   cc_seams    one thread a pixel on a tile's top row and left column
+//               unites it with its neighbour across the seam where the
+//               labels are equal and one of the two runs along the seam
+//               starts there, in device memory with atomicMin linking.
+//   cc_flatten  out[p] = root(out[p]).
+// A region's minimum pixel only ever points at itself (a parent only
+// decreases and stays inside the region), so the root is that minimum and
 // the labelling is unique whatever order the atomics land in.
-//
+
 // fstt_lookup replaces fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel
 // (pallas_call in banded_lookup_pallas), which emulated a gather with banded
 // one-hot matmuls: out[i] = table[ids[i]] is a plain gather here.
@@ -32,25 +39,39 @@
 // after n hops or at a target outside the table, so a malformed table
 // cannot hang the card.
 //
-// Bound on the card: the merge pass is bound by dependent loads on the
-// parent chains (latency) and atomics where trees join; at 720p the map is
-// 3.7 MB and stays in L2.  The lookup is bound by device memory (8 bytes
-// read and 4 written a pixel): each thread moves four ids and four results
-// as 16-byte vectors (a scalar path for unaligned views and the tail), the
-// table is read through the read-only cache, and a grid of a few blocks per
-// SM strides over the ids.  The table has n entries (3.7 MB at 720p), which
-// L2 holds, so staging it in shared memory would not help.  The orphan walk
-// is bound by its dependent loads (real chains are 1-3 hops); its tables
-// stay in L2.  Merge: each pass is one thread per element, and parents are
-// read through volatile loads, so a thread never follows a stale L1 copy of
-// a chain another SM has relinked.
+// Bound on the card: the components need 8 bytes a pixel (a label read, an
+// id written; 7.4 MB at 720p, 2.2 us at 3.35 TB/s), but a union-find is
+// bound by its dependent loads: a find is a chain of round trips (to L2 in
+// device memory), and a union over single pixels builds chains as long as a
+// region has rows.  Inside a tile this design does without finds: a warp
+// carries the labels of its rows in registers and merges a run with the
+// row above by shuffles, and only the few label pairs where two pieces meet
+// go through shared memory, resolved by hooking and shortcutting rounds
+// with no per-thread loops.  (A shared-memory union-find, one union a pair
+// of touching runs, was slower at 720p: scripts/kernel_variants.py.)
+// Across tiles a chain is as long as the number of tiles a region spans
+// (1-4 for a superpixel), and only 1/16 of the pixels (the seams) take
+// part.  Parents in device memory are read through volatile loads, so a
+// thread never follows a stale L1 copy of a chain another SM has relinked.
+//
+// The lookup is bound by device memory (8 bytes read and 4
+// written a pixel): each thread moves four ids and four results as 16-byte
+// vectors (a scalar path for unaligned views and the tail), the table is
+// read through the read-only cache, and a grid of a few blocks per SM
+// strides over the ids.  The table has n entries (3.7 MB at 720p), which L2
+// holds, so staging it in shared memory would not help.  The orphan walk is
+// bound by its dependent loads (real chains are 1-3 hops); its tables stay
+// in L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__device__ int find_root(const volatile int32_t* parent, int x) {
+// find and union on a parent array in device memory: parents only decrease,
+// so a stale read still leads to the root
+__device__ __forceinline__ int find_root(const volatile int32_t* parent,
+                                         int x) {
     int y = parent[x];
     while (y != x) {
         x = y;
@@ -59,7 +80,7 @@ __device__ int find_root(const volatile int32_t* parent, int x) {
     return x;
 }
 
-__device__ void unite(int32_t* parent, int a, int b) {
+__device__ __forceinline__ void unite(int32_t* parent, int a, int b) {
     const volatile int32_t* vp = parent;
     while (true) {
         a = find_root(vp, a);
@@ -76,20 +97,149 @@ __device__ void unite(int32_t* parent, int a, int b) {
     }
 }
 
-__global__ void cc_init(int32_t* parent, int n) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p < n) parent[p] = p;
+constexpr int kTile = 32;                        // tile side
+constexpr int kGroupRows = 4;                    // rows a warp scans
+constexpr int kScanWarps = kTile / kGroupRows;   // warps a tile
+// at most one merge a column and pair of neighbouring rows
+constexpr int kMaxPairs = kTile * (kTile - 1);
+
+// one block (kScanWarps warps) a 32x32 tile; out[p] = the global index of
+// the minimum pixel of p's piece in the tile.  Labels are tile-local pixel
+// indices.  Warp w scans rows 4w..4w+3 top-down, a lane a column: a run
+// (from a ballot over label != left label) takes the smallest label among
+// the equal-label pixels above it (a segmented min over the run), or its
+// start as a fresh label; where it also touches a different label above, the
+// pair is recorded (once a span above).  The rows where two warps' groups
+// meet add a pair where two equal-label runs first touch.  The pairs are
+// then resolved in rounds: hook the larger representative under the smaller
+// (atomicMin), point each pair's labels at their representatives'
+// representatives, until nothing changes; every label of a piece then
+// points at the piece's smallest label, which is its minimum pixel (a fresh
+// label is a run start, and the piece's first pixel starts a run with
+// nothing of the piece above it).
+__global__ void __launch_bounds__(32 * kScanWarps)
+cc_local(const int32_t* __restrict__ labels, int32_t* __restrict__ out,
+         int H, int W) {
+    __shared__ int32_t eq[kTile * kTile];
+    __shared__ int2 pairs[kMaxPairs];
+    __shared__ int npairs;
+    __shared__ int32_t last_lab[kScanWarps][kTile];
+    __shared__ int32_t last_lbl[kScanWarps][kTile];
+    __shared__ uint32_t last_runs[kScanWarps];
+    constexpr unsigned kAll = 0xFFFFFFFFu;
+    constexpr int kNoLabel = 0x7FFFFFFF;
+    const int c = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int gj = blockIdx.x * kTile + c;
+    const int r0 = w * kGroupRows;
+    const int gi0 = blockIdx.y * kTile + r0;
+    if (threadIdx.x == 0) npairs = 0;
+    int lab[kGroupRows], lbl[kGroupRows];
+    uint32_t runs[kGroupRows];
+#pragma unroll
+    for (int k = 0; k < kGroupRows; ++k)
+        lab[k] = gi0 + k < H && gj < W ? labels[(gi0 + k) * W + gj] : 0;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kGroupRows; ++k) {
+        // pixels past the edge are runs of their own and join nothing
+        const bool valid = gi0 + k < H && gj < W;
+        const int left = __shfl_up_sync(kAll, lab[k], 1);
+        runs[k] = __ballot_sync(kAll, c == 0 || !valid || left != lab[k]);
+        const int s = 31 - __clz(runs[k] & (kAll >> (31 - c)));
+        const uint32_t after = runs[k] & ~(kAll >> (31 - c));
+        const int e = after ? __ffs(after) - 2 : 31;
+        const int kp = k > 0 ? k - 1 : 0;
+        const bool up = k > 0 && valid && lab[k] == lab[kp];
+        const int above = up ? lbl[kp] : kNoLabel;
+        int m = above;  // min over the run [s, e]
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_down_sync(kAll, m, off);
+            if (c + off <= e) m = min(m, o);
+        }
+        m = __shfl_sync(kAll, m, s);
+        const int fresh = (r0 + k) * kTile + s;
+        lbl[k] = m == kNoLabel ? fresh : m;
+        if (valid && c == s && m == kNoLabel) eq[fresh] = fresh;
+        const int left_above = __shfl_up_sync(kAll, above, 1);
+        if (up && above != lbl[k] && (c == s || left_above != above))
+            pairs[atomicAdd(&npairs, 1)] = make_int2(above, lbl[k]);
+    }
+    last_lab[w][c] = lab[kGroupRows - 1];
+    last_lbl[w][c] = lbl[kGroupRows - 1];
+    if (c == 0) last_runs[w] = runs[kGroupRows - 1];
+    __syncthreads();
+    // group w's first row below group w - 1's last row: two equal-label
+    // runs first touch where one of them starts
+    if (w > 0 && gi0 < H && gj < W && last_lab[w - 1][c] == lab[0] &&
+        (((runs[0] | last_runs[w - 1]) >> c) & 1))
+        pairs[atomicAdd(&npairs, 1)] = make_int2(last_lbl[w - 1][c], lbl[0]);
+    __syncthreads();
+    const int np = npairs;
+    volatile int32_t* veq = eq;
+    bool changed = np > 0;
+    while (__syncthreads_or(changed)) {
+        changed = false;
+        for (int i = threadIdx.x; i < np; i += blockDim.x) {
+            const int2 pr = pairs[i];
+            const int ra = veq[pr.x], rb = veq[pr.y];
+            if (ra != rb) {
+                atomicMin(eq + max(ra, rb), min(ra, rb));
+                changed = true;
+            }
+        }
+        __syncthreads();
+        for (int i = threadIdx.x; i < np; i += blockDim.x) {
+            const int2 pr = pairs[i];
+            const int ends[2] = {pr.x, pr.y};
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                const int up1 = veq[ends[q]], up2 = veq[up1];
+                if (up2 != up1) {
+                    atomicMin(eq + ends[q], up2);
+                    changed = true;
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroupRows; ++k) {
+        if (gi0 + k < H && gj < W) {
+            const int root = eq[lbl[k]];
+            out[(gi0 + k) * W + gj] = (blockIdx.y * kTile + root / kTile) * W +
+                                      blockIdx.x * kTile + root % kTile;
+        }
+    }
 }
 
-__global__ void cc_merge(const int32_t* __restrict__ labels, int32_t* parent,
-                         int H, int W) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= H * W) return;
-    int i = p / W;
-    int j = p - i * W;
-    int lab = labels[p];
-    if (j > 0 && labels[p - 1] == lab) unite(parent, p - 1, p);
-    if (i > 0 && labels[p - W] == lab) unite(parent, p - W, p);
+// one thread a seam pixel: first the top rows of tile rows 1.., then the
+// left columns of tile columns 1..; each unites with its neighbour across
+// the seam where the labels are equal and one of the two runs along the
+// seam (tile-local, so already one piece) starts there
+__global__ void cc_seams(const int32_t* __restrict__ labels, int32_t* parent,
+                         int H, int W, int row_seams, int col_seams) {
+    int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const int across = row_seams * W;
+    if (t < across) {
+        const int k = t / W;
+        const int j = t - k * W;
+        const int p = (k + 1) * kTile * W + j;
+        const int lab = labels[p];
+        if (labels[p - W] == lab &&
+            (j % kTile == 0 || labels[p - 1] != lab ||
+             labels[p - W - 1] != lab))
+            unite(parent, p - W, p);
+        return;
+    }
+    t -= across;
+    if (t >= col_seams * H) return;
+    const int k = t / H;
+    const int i = t - k * H;
+    const int p = i * W + (k + 1) * kTile;
+    const int lab = labels[p];
+    if (labels[p - 1] == lab &&
+        (i % kTile == 0 || labels[p - W] != lab || labels[p - W - 1] != lab))
+        unite(parent, p - 1, p);
 }
 
 __global__ void cc_flatten(int32_t* parent, int n) {
@@ -161,15 +311,22 @@ int sm_count() {
 // out: int32 [H, W] component ids (min linear index of the region)
 extern "C" int fstt_cc(const void* labels, void* out, int H, int W,
                        void* stream) {
-    int n = H * W;
-    if (n > 0) {
-        int threads = 256;
-        int blocks = (n + threads - 1) / threads;
+    if (H > 0 && W > 0) {
         cudaStream_t s = (cudaStream_t)stream;
-        cc_init<<<blocks, threads, 0, s>>>((int32_t*)out, n);
-        cc_merge<<<blocks, threads, 0, s>>>((const int32_t*)labels,
-                                            (int32_t*)out, H, W);
-        cc_flatten<<<blocks, threads, 0, s>>>((int32_t*)out, n);
+        dim3 tiles((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+        cc_local<<<tiles, 32 * kScanWarps, 0, s>>>(
+            (const int32_t*)labels, (int32_t*)out, H, W);
+        int row_seams = tiles.y - 1, col_seams = tiles.x - 1;
+        int seam_pixels = row_seams * W + col_seams * H;
+        if (seam_pixels > 0) {  // one tile: its roots are the components
+            int threads = 256;
+            cc_seams<<<(seam_pixels + threads - 1) / threads, threads, 0,
+                       s>>>((const int32_t*)labels, (int32_t*)out, H, W,
+                            row_seams, col_seams);
+            int n = H * W;
+            cc_flatten<<<(n + threads - 1) / threads, threads, 0, s>>>(
+                (int32_t*)out, n);
+        }
     }
     return (int)cudaGetLastError();
 }

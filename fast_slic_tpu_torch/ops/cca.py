@@ -174,22 +174,31 @@ def enforce_connectivity_flagged(assignment, K: int, min_threshold: int):
     return lookup(comp_flat, substitute).reshape(H, W), boundary_tie
 
 
-def framed_components(assignment, K: int):
-    """Components of B stacked frames in one pass over the [B*H, W] stack:
-    int32 [B, H, W] frame-local labels -> (comp int32 [B, H, W] frame-local
-    component ids in leader order, is_leader bool [B, H*W]).
-
-    Frame f's labels become f*K + k and its UNASSIGNED pixels 0x10000 + f,
-    so no region joins across a frame boundary: one connected-components
-    launch over the stack gives each frame its standalone components, and a
-    frame's pixel (0, 0) leads its first component.  The frame's leader
-    ranks are the global exclusive count minus its value at that pixel."""
+def framed_labels(assignment, K: int):
+    """int32 [B, H, W] frame-local labels -> the int32 [B*H, W] stack that
+    one connected-components launch takes: frame f's labels become f*K + k
+    and its UNASSIGNED pixels 0x10000 + f, so no region joins across a
+    frame boundary."""
     B, H, W = assignment.shape
     fid = torch.arange(B, dtype=torch.int32,
                        device=assignment.device)[:, None, None]
     labels = torch.where(assignment == UNASSIGNED, 0x10000 + fid,
                          assignment + fid * K).to(torch.int32)
-    L = connected_components(labels.reshape(B * H, W)).reshape(-1)
+    return labels.reshape(B * H, W)
+
+
+def framed_components(assignment, K: int):
+    """Components of B stacked frames in one pass over the [B*H, W] stack
+    of :func:`framed_labels`: int32 [B, H, W] frame-local labels -> (comp
+    int32 [B, H, W] frame-local component ids in leader order, is_leader
+    bool [B, H*W]).
+
+    One connected-components launch over the stack gives each frame its
+    standalone components, and a frame's pixel (0, 0) leads its first
+    component.  The frame's leader ranks are the global exclusive count
+    minus its value at that pixel."""
+    B, H, W = assignment.shape
+    L = connected_components(framed_labels(assignment, K)).reshape(-1)
     is_leader, rank, _ = leader_ranks(L)
     rank = rank.reshape(B, H * W)
     comp = lookup(L, (rank - rank[:, :1]).reshape(-1)).reshape(B, H, W)

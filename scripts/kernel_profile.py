@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device time a launch of the SLIC update sums (plain and masked), the CCA
-lookup, the orphan chase and the f32 segment sum (with whatever groups its
-pixels), at B=1 and in a stacked batch of four frames, on a CUDA GPU.
+"""Device time a launch of the assign kernel, the SLIC update sums (plain
+and masked), the CCA's components, lookup and orphan chase and the f32
+segment sum (with whatever groups its pixels), at B=1 and in a stacked
+batch of four frames, on a CUDA GPU.
 
     python3 scripts/kernel_profile.py [--root DIR]
 
@@ -12,13 +13,16 @@ and one steady batch of `BatchedSlic(num_components=1600,
 batch_mode="stack")` on four such frames, also with `preemptive=True`,
 under torch.profiler, and prints,
 for each, the run's device launches and busy share and every device kernel
-whose name names one of those calls (the update kernels, the LAB
-conversion, LSC's colour features, the CCA lookup and chase, the f32
-segment sum and its sort, scan and search launches), with
-its launches and device microseconds a launch.  Only the public API is
-used, so ``--root`` may name another checkout of the port (default: the
-one holding this script) and two versions can be profiled in one run on
-one card.  Prints one JSON line.
+whose name names one of those calls (the assign kernel, the update
+kernels, the LAB conversion, LSC's colour features, the CCA's components
+kernels, lookup and chase, the f32 segment sum and its sort, scan and
+search launches), with its launches and device microseconds a launch; then
+the same for 20 calls of the assign kernel alone on a mid-loop state of the
+first frame, at stride 3 and at stride 1.  The frames go through the
+public API and the assign calls through the pipeline's stages, so
+``--root`` may name another checkout of the port (default: the one holding
+this script) and two versions can be profiled in one run on one card.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -36,20 +40,21 @@ import numpy as np
 WATCH = ("slic_update_kernel", "lab_kernel", "lsc_feat_kernel",
          "lookup_kernel", "resolve_orphans_kernel", "fsegsum_kernel",
          "fs_rank", "fs_scan", "fs_scatter", "fs_sum", "RadixSort",
-         "radixSort", "searchsorted")
+         "radixSort", "searchsorted", "assign_kernel", "cc_init",
+         "cc_merge", "cc_local", "cc_seams", "cc_flatten")
 
 
-def profile_frame(slic, warm, frame):
-    """torch.profiler over ``slic.iterate(frame)`` after
-    ``slic.iterate(warm)`` (a frame, or a batch of frames)."""
+def profiled(run):
+    """torch.profiler over ``run()``: wall µs, device busy µs, device
+    launches and, for each watched kernel, its launches and device µs a
+    launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    slic.iterate(warm)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        slic.iterate(frame)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, launches, rows = 0.0, 0, {}
@@ -66,6 +71,42 @@ def profile_frame(slic, warm, frame):
                                  "us_per_launch": us / e.count}
     return {"wall_us": wall_us, "busy_us": busy, "launches": launches,
             "kernels": rows}
+
+
+def profile_frame(slic, warm, frame):
+    """:func:`profiled` over ``slic.iterate(frame)`` after
+    ``slic.iterate(warm)`` (a frame, or a batch of frames)."""
+    slic.iterate(warm)
+    return profiled(lambda: slic.iterate(frame))
+
+
+def profile_assign(frame, K, reps=20):
+    """The assign kernel alone at the frame's shapes, on a mid-loop state
+    (setup and three loop iterations): ``reps`` calls each at stride 3 and
+    at stride 1."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    from fast_slic_tpu_torch.kernels import assign
+    H, W = frame.shape[:2]
+    cfg = StaticConfig(H=H, W=W, K=K)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    st = cl.initialize_clusters(frame, K).to_torch("cuda")
+    planes, st, lsc = pipeline.stage_setup(torch.from_numpy(frame).cuda(),
+                                           st, cfg, scal)
+    st, a, _, _ = pipeline.stage_loop(planes, st, lsc, cfg, scal, 3, 3)
+    st = pipeline._clamp_centers(st, cfg)
+    cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+    table = pipeline.center_table(st)
+    out = {}
+    for stride in (3, 1):
+        def run(stride=stride):
+            for _ in range(reps):
+                assign.assign(planes, table, cand, a, scal.coef, cfg.S,
+                              stride, 0, True)
+        run()
+        out["assign alone, stride %d" % stride] = profiled(run)
+    return out
 
 
 def main() -> int:
@@ -95,6 +136,7 @@ def main() -> int:
                           ("LSCAvx2", LSCAvx2, {})):
         slic = cls(num_components=K720, device="cuda", **kw)
         out[name] = profile_frame(slic, frames[0], frames[1])
+    out.update(profile_assign(frames[0], K720))
     for name, kw in (("", {}), (" preemptive", {"preemptive": True})):
         bs = BatchedSlic(num_components=K720, batch_mode="stack",
                          device="cuda", **kw)

@@ -36,9 +36,11 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(rng, manhattan=True, cand_slots=16):
-    """Image planes, a jittered cluster state with a few inactive clusters,
-    and an old assignment, as numpy arrays shared by both packages."""
+def _inputs(rng, manhattan=True, cand_slots=16, inactive_patch=False):
+    """Image planes, a jittered cluster state with a few inactive clusters
+    (with ``inactive_patch``, also every cluster of the top-left 40x40
+    pixels, so cell (0, 0) has no candidate), and an old assignment, as
+    numpy arrays shared by both packages."""
     image = make_image(rng, H, W)
     planes = np.moveaxis(rgb_to_lab_quantized_np(image), -1, 0).astype(
         np.int32)
@@ -49,6 +51,8 @@ def _inputs(rng, manhattan=True, cand_slots=16):
     # (the Pallas kernel's bf16 colour expansion relies on it)
     st.r = np.clip(st.r + rng.integers(-3, 4, K), 0, 255).astype(np.float32)
     st.is_active[rng.choice(K, 3, replace=False)] = 0
+    if inactive_patch:
+        st.is_active[(st.y < 40) & (st.x < 40)] = 0
     old = rng.integers(0, K, size=(H, W)).astype(np.int32)
     old[rng.random((H, W)) < 0.1] = UNASSIGNED
     flags = dict(manhattan_spatial_dist=manhattan, cand_slots=cand_slots)
@@ -111,6 +115,42 @@ def test_assign_pass_matches_assign_xla(rng, manhattan, stride, rem):
     # the rows this pass skips keep their old value
     skip = (np.arange(H) % stride) != rem
     np.testing.assert_array_equal(a.numpy()[skip], old[skip])
+
+
+@pytest.mark.parametrize("manhattan", [True, False])
+@pytest.mark.parametrize("stride,rem", [(3, 1), (1, 0)])
+@pytest.mark.parametrize("case", ["slots_48", "inactive_patch"])
+def test_assign_pass_edge_cases_match_assign_xla(rng, case, manhattan, stride,
+                                                 rem):
+    # 48 slots (the overflow re-run's width), and cells with no candidate,
+    # where the old assignment stays and min_dists reads UNASSIGNED
+    planes, st, old, cfg_j, cfg_t = _inputs(
+        rng, manhattan, cand_slots=48 if case == "slots_48" else 16,
+        inactive_patch=case == "inactive_patch")
+    scal = jpipe.derive_scalars(cfg_j, 10.0, 0.25, 0.05)
+    stj = jcl.Clusters(*(jnp.asarray(getattr(st, f)) for f in (
+        "y", "x", "r", "g", "b", "num_members", "is_active",
+        "is_updatable")))
+    cand_j, _ = jpipe.build_candidates(stj.y, stj.x, stj.is_active, cfg_j)
+    ref = jpipe.assign_xla(jnp.asarray(planes), stj, cand_j, cfg_j,
+                           scal.coef, jnp.asarray(old), rem, stride)
+
+    t = _port_state(st)
+    cand_t, _ = tpipe.build_candidates(t.y, t.x, t.is_active, cfg_t)
+    assert cand_t.shape[-1] == cfg_t.cand_slots
+    a = torch.from_numpy(old.copy())
+    md = torch.full((H, W), UNASSIGNED, dtype=torch.int32)
+    assign(torch.from_numpy(planes), tpipe.center_table(t), cand_t, a,
+           tpipe.derive_scalars(cfg_t, 10.0, 0.25).coef, cfg_t.S,
+           stride, rem, manhattan, min_dists=md)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ref.assignment))
+    np.testing.assert_array_equal(md.numpy(), np.asarray(ref.min_dists))
+    if case == "inactive_patch":
+        assert bool((cand_t[0, 0] < 0).all())
+        rows = np.arange(rem, cfg_t.S, stride)
+        assert (md.numpy()[rows, :cfg_t.S] == UNASSIGNED).all()
+        np.testing.assert_array_equal(a.numpy()[rows, :cfg_t.S],
+                                      old[rows, :cfg_t.S])
 
 
 @pytest.mark.parametrize("stride,rem", [(3, 1), (1, 0)])

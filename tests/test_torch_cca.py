@@ -18,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 from fast_slic_tpu.ops.cca import _resolve_orphans as jax_resolve_orphans
+from fast_slic_tpu.ops.cca import connected_components as jax_components
 from fast_slic_tpu.ops.cca import enforce_connectivity_xla_flagged
 from fast_slic_tpu.oracle.numpy_ref import enforce_connectivity_np
 from fast_slic_tpu.oracle.numpy_ref import heap_select_topk as jax_heap
@@ -162,6 +163,65 @@ def test_component_ids_match_propagate_min_pallas(rng):
     flat = got.numpy().ravel()
     for leader in np.unique(flat):
         assert np.nonzero(flat == leader)[0].min() == leader
+
+
+def _superpixel_labels(rng, H, W, S=24):
+    """24x24 cells whose borders move by up to S/4 pixels a row and a
+    column, ~5 % UNASSIGNED: regions that cross the card kernel's 32x32
+    tile seams."""
+    GH, GW = -(-H // S), -(-W // S)
+    di = rng.integers(-(S // 4), S // 4 + 1, size=W)
+    dj = rng.integers(-(S // 4), S // 4 + 1, size=H)
+    ci = np.clip((np.arange(H)[:, None] + di) // S, 0, GH - 1)
+    cj = np.clip((np.arange(W) + dj[:, None]) // S, 0, GW - 1)
+    lab = (ci * GW + cj).astype(np.int32)
+    lab[rng.random(lab.shape) < 0.05] = UNASSIGNED
+    return lab, GH * GW
+
+
+def _serpentine(H, W):
+    """A 1-pixel serpentine: rows 0, 2, 4, ... of label 0 joined at
+    alternating ends, in a field of label 1."""
+    lab = np.ones([H, W], np.int32)
+    lab[::2, :] = 0
+    for i, r in enumerate(range(1, H, 2)):
+        lab[r, (W - 1) if i % 2 == 0 else 0] = 0
+    return lab
+
+
+def _component_case(rng, case):
+    H, W = 96, 160
+    if case == "one_label":
+        return np.zeros([H, W], np.int32)
+    if case == "superpixels":
+        return _superpixel_labels(rng, H, W)[0]
+    if case == "serpentine":
+        return _serpentine(H, W)
+    if case == "row_1xn":
+        return rng.integers(0, 2, size=(1, W)).astype(np.int32)
+    if case == "col_nx1":
+        return rng.integers(0, 2, size=(H, 1)).astype(np.int32)
+    if case == "square_33":
+        return rng.integers(0, 2, size=(33, 33)).astype(np.int32)
+    if case == "stacked_frames":
+        # four frames as ops.cca.framed_components labels them: frame f's
+        # label k becomes f*K + k, its UNASSIGNED 0x10000 + f
+        frames, K = zip(*(_superpixel_labels(rng, 24, W) for _ in range(4)))
+        return np.concatenate([
+            np.where(f == UNASSIGNED, 0x10000 + i, f + i * K[0])
+            for i, f in enumerate(frames)]).astype(np.int32)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["one_label", "superpixels", "serpentine",
+                                  "row_1xn", "col_nx1", "square_33",
+                                  "stacked_frames"])
+def test_component_ids_match_jax_cases(rng, case):
+    labels = _component_case(rng, case)
+    ref = np.asarray(jax_components(jnp.asarray(labels)))
+    got = connected_components(torch.from_numpy(labels))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_lookup_is_a_gather(rng):

@@ -7,8 +7,13 @@ JAX it runs on its own:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Exact: integer outputs (the orphan chase too, on random orphan DAGs, a
-3000-hop chain, three stacked frames and a real 720p frame's tables) and
-the float assign's distances must be equal;
+3000-hop chain, three stacked frames and a real 720p frame's tables; the
+components on one label, superpixels across every tile seam, a serpentine,
+1 x n, n x 1 and 33 x 33 maps and the stacked map of four frames; the
+assign on cells without candidates, 4 and 48 slots, K=6000, W=1277, a view
+off the 16-byte boundary, S=21, 67 and 151, duplicate centres and three
+stacked frames, each remainder and both distances) and the float assign's distances must
+be equal;
 the LSC colour features too, and so must both update sums on each branch
 of their kernels (superpixel-like tiles, one cluster whose sums wrap,
 random ids that overflow the shared table, ragged and misaligned rows,
@@ -130,11 +135,12 @@ def test_segment_sum_kernel_matches_plain(cuda, rng):
         segsum.segment_sum_plain(ids, vals, S))
 
 
-def _spiral(n):
-    lab_ = np.ones([n, n], np.int32)
+def _spiral(H, W=None):
+    W = H if W is None else W
+    lab_ = np.ones([H, W], np.int32)
     lab_[::2, :] = 0
-    for i, r in enumerate(range(1, n, 2)):
-        lab_[r, (n - 1) if i % 2 == 0 else 0] = 0   # a serpentine
+    for i, r in enumerate(range(1, H, 2)):
+        lab_[r, (W - 1) if i % 2 == 0 else 0] = 0   # a serpentine
     return lab_
 
 
@@ -154,6 +160,36 @@ def test_connected_components_kernel_matches_plain(cuda, rng, kind):
         labels[labels == 2] = UNASSIGNED
     else:
         labels = np.indices((H, W)).sum(0) % 2
+    t = torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(cuda)
+    _eq(cca.connected_components(t), cca.connected_components_plain(t))
+
+
+# the kernel labels 32x32 tiles on chip, then unites across tile seams: one
+# label over the whole map, superpixels that cross every seam (with
+# UNASSIGNED pixels), a serpentine that threads every tile, maps of one row,
+# one column and one tile plus a pixel (ragged tiles), and the stacked map of
+# four frames that ops.cca.framed_components builds (label f*K + k,
+# UNASSIGNED 0x10000 + f)
+@pytest.mark.parametrize("case", ["one_label_720p", "superpixels_720p",
+                                  "serpentine_720p", "row_1x1000",
+                                  "col_1000x1", "square_33",
+                                  "stacked_4x720p"])
+def test_connected_components_kernel_cases(cuda, rng, case):
+    if case == "one_label_720p":
+        labels = np.zeros((720, 1280), np.int32)
+    elif case == "superpixels_720p":
+        labels = _superpixels(rng, 1, 720, 1280)[0][0]
+    elif case == "serpentine_720p":
+        labels = _spiral(720, 1280)
+    elif case == "stacked_4x720p":
+        a, K = _superpixels(rng, 4, 720, 1280)
+        f = np.arange(4)[:, None, None]
+        labels = np.where(a == UNASSIGNED, 0x10000 + f,
+                          a + f * K).reshape(4 * 720, 1280)
+    else:
+        shape = {"row_1x1000": (1, 1000), "col_1000x1": (1000, 1),
+                 "square_33": (33, 33)}[case]
+        labels = rng.integers(0, 2, size=shape)
     t = torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(cuda)
     _eq(cca.connected_components(t), cca.connected_components_plain(t))
 
@@ -481,6 +517,86 @@ def test_slic_update_kernel_cases(cuda, rng, case, masked, stride, rem):
     else:
         _eq(segsum.slic_update(a, planes, K, stride, rem),
             segsum.slic_update_plain(a, planes, K, stride, rem))
+
+
+def _assign_case(rng, dev, case, manhattan):
+    """(planes, table, cand, old assignment, coef, S) of one assign case;
+    a leading frame dim for frames_3."""
+    B = 3 if case == "frames_3" else 1
+    H, W, K = {"k6000": (720, 1280, 6000), "w1277": (131, 1277, 290),
+               "s21": (240, 384, 200), "s67": (240, 384, 20),
+               "s151": (240, 384, 4)}.get(case, (240, 384, 160))
+    cfg = StaticConfig(H=H, W=W, K=K, manhattan_spatial_dist=manhattan,
+                       cand_slots={"slots_4": 4, "slots_48": 48}.get(case, 16))
+    sts = []
+    for _ in range(B):
+        st = tcl.initialize_clusters(
+            rng.integers(0, 256, size=(H, W, 3)).astype(np.uint8), K)
+        st.y = np.clip(st.y + rng.uniform(-6, 6, K), 0, H - 1).astype(
+            np.float32)
+        st.x = np.clip(st.x + rng.uniform(-6, 6, K), 0, W - 1).astype(
+            np.float32)
+        if case == "duplicates":
+            # every odd cluster a copy of the even one before it: the
+            # lower slot must win each tie
+            for f in ("y", "x", "r", "g", "b"):
+                v = getattr(st, f)
+                v[1::2] = v[0:K - 1:2]
+        if case == "inactive_patch":
+            # a 5x7-cell patch of inactive clusters: its inner cells have
+            # no candidate
+            st.is_active[(st.y >= 48) & (st.y < 168) & (st.x >= 96)
+                         & (st.x < 264)] = 0
+        sts.append(st)
+    st = tcl.clusters_from_numpy(*(np.stack(xs) for xs in zip(
+        *(s.fields() for s in sts)))).to_torch(dev)
+    cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+    table = pipeline.center_table(st)
+    planes = torch.from_numpy(rng.integers(0, 256, size=(3, B, H, W)).astype(
+        np.int32)).to(dev)
+    old = torch.from_numpy(rng.integers(0, K, size=(B, H, W)).astype(
+        np.int32)).to(dev)
+    if B == 1:
+        planes, table, cand, old = (planes[:, 0].contiguous(), table[0],
+                                    cand[0], old[0])
+    if case == "offset":
+        planes = _offset(planes)
+        assert planes.data_ptr() % 16 == 4
+    coef = pipeline.derive_scalars(cfg, 10.0, 0.25).coef
+    return planes, table, cand, old, coef, cfg.S
+
+
+# the kernel stages each cell's candidates in shared memory and walks a
+# thread's rows per slot: cells with no candidate, 4 and 48 slots, K=6000
+# (S=12, 8 cells a block), W=1277 and a view off the 16-byte boundary
+# (unaligned rows), S=21 (6 cells a block), S=67 (one cell a block; the
+# Euclidean spatial term computed in the loop, its table too large), S=151
+# (a cell wider than a block: threads take two columns), duplicate centres
+# (ties), and three stacked frames
+ASSIGN_CASES = ["inactive_patch", "slots_4", "slots_48", "k6000", "w1277",
+                "offset", "s21", "s67", "s151", "duplicates", "frames_3"]
+
+
+@pytest.mark.parametrize("manhattan", [True, False])
+@pytest.mark.parametrize("stride,rem", [(3, 0), (3, 1), (3, 2), (1, 0)])
+@pytest.mark.parametrize("case", ASSIGN_CASES)
+def test_assign_kernel_cases(cuda, rng, case, stride, rem, manhattan):
+    planes, table, cand, old, coef, S = _assign_case(rng, cuda, case,
+                                                     manhattan)
+    outs = []
+    for fn in (assign.assign, assign.plain):
+        a = old.clone()
+        md = torch.full_like(a, -7)
+        fn(planes, table, cand, a, coef, S, stride, rem, manhattan,
+           min_dists=md)
+        outs.append((a, md))
+    _eq(outs[0][0], outs[1][0])
+    _eq(outs[0][1], outs[1][1])
+    if case == "inactive_patch":
+        # nothing won there: the old value stays, min_dists reads 0xFFFF
+        none = outs[0][1] == UNASSIGNED
+        assert bool(none.any())
+        _eq(outs[0][0][none], old[none])
 
 
 def test_framed_segment_sum_kernel_matches_plain(cuda, rng):
