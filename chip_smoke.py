@@ -20,7 +20,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    orphan chase on its selection's tables); the
    LSC features and the f32 segment sum on an LSC state of the frame; on
    four stacked frames after nine preemptive iterations, where some cells
-   are inactive: assign, float assign and update with the frame axis, the
+   are inactive: assign, float assign and update with the frame axis (and
+   the LSC float assign on the four frames' LSC states stacked), the
    masked update with that pixel mask at B=4 and B=1, and the components
    and the per-frame segment sum on the four frames' stacked CCA map; the
    f32 segment sum again under frame 0's preemptive mask); bit-exact (the
@@ -113,7 +114,8 @@ BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
-                  "cc_local", "cc_seams", "cc_flatten")
+                  "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
+                  "segment_sum_kernel")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
@@ -534,7 +536,8 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
     """The kernels with a frame axis and the two kernels of the preemptive
     and stacked paths, on four stacked frames after nine preemptive loop
     iterations (the pixel mask then has inactive cells): assign, float
-    assign (real, real_l2, real_noq) and update over the B frames, the
+    assign (real, real_l2, real_noq; lsc on the frames' own mid-loop LSC
+    states, stacked) and update over the B frames, the
     masked update at B=4 and B=1, each at stride 3 with each remainder and
     at stride 1, the components on the frames' stacked CCA map and the
     per-frame segment sum on their CCA values; and the f32 segment sum
@@ -645,6 +648,48 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
             else:
                 log_times("slic_update_masked B=%d at stride %d"
                           % (nb, stride), *timed)
+
+    # the LSC float assign with the frame axis: each frame's mid-loop LSC
+    # state (setup and three loop iterations), stacked
+    lcfg = StaticConfig(H=H, W=W, K=K, variant="lsc")
+    lscal = pipeline.derive_scalars(lcfg, 10.0, 0.25)
+    parts = []
+    for f in frames:
+        lst = cl.initialize_clusters(f, K).to_torch(dev)
+        lp, lst, lsc = pipeline.stage_setup(torch.from_numpy(f).to(dev), lst,
+                                            lcfg, lscal)
+        lst, la, lcent, _ = pipeline.stage_loop(lp, lst, lsc, lcfg, lscal, 3,
+                                                3)
+        lst = pipeline._clamp_centers(lst, lcfg)
+        lcand, _ = pipeline.build_candidates(lst.y, lst.x, lst.is_active,
+                                             lcfg)
+        parts.append((lp, pipeline.center_table(lst), lcand, la, lsc[0],
+                      lcent))
+    lp, ltable, lcand, la, lfeats, lcent = (
+        torch.stack(xs, d) for xs, d in zip(zip(*parts), (1, 0, 0, 0, 1, 0)))
+    for stride, rem in ((3, 0), (3, 1), (3, 2), (1, 0)):
+        outs = []
+        for fn in (assign_float.assign_float, assign_float.plain):
+            a = la.clone()
+            md = torch.full(a.shape, assign_float.F32_MAX, device=dev)
+            fn(lp, ltable, lcand, a, lscal.coef, lcfg.S, stride, rem, "lsc",
+               True, md, lfeats, lcent)
+            outs.append((a, md))
+        res.check("assign_float", max(max_abs_err(outs[0][0], outs[1][0]),
+                                      max_abs_err(outs[0][1], outs[1][1])))
+        if rem == 0:
+            a_l = outs[0][0]
+            P = len(range(rem, H, stride)) * W
+            log_times("assign_float lsc B=%d at stride %d" % (B, stride),
+                      lambda: assign_float.assign_float(
+                          lp, ltable, lcand, a_l, lscal.coef, lcfg.S, stride,
+                          rem, "lsc", True, None, lfeats, lcent),
+                      lambda: assign_float.plain(
+                          lp, ltable, lcand, a_l, lscal.coef, lcfg.S, stride,
+                          rem, "lsc", True, None, lfeats, lcent),
+                      44 * B * P + nbytes(lcand, ltable, lcent),
+                      OPS_PER_VISIT["lsc"]
+                      * cand_visits(lcand, H, W, lcfg.S, stride, rem))
 
     # LSC's segment sum under frame 0's preemptive mask (rows 0::3), beside
     # the unmasked call

@@ -15,10 +15,10 @@
 // reduced them with byte-split bf16 matmuls, which limited values to 2^16
 // and needed hi-bucket band guards (masked pixels kept the tile's minimum
 // id) and a per-frame VMEM output block.  Hopper has native int32 atomics:
-// the segment sums add each pixel's values into a zeroed buffer, the update
-// first sums a tile's pixels on chip (below).  Integer addition is
-// associative, so the result is exact and independent of the order the
-// atomics land in, and none of those devices is needed.
+// the update and segment_sum first sum a tile's pixels on chip (below),
+// framed_segment_sum adds each pixel's values into a zeroed buffer.
+// Integer addition is associative, so the result is exact and independent
+// of the order the atomics land in, and none of those devices is needed.
 //
 // slic_update builds [count, i, j, L, a, b] in-kernel from the
 // full-resolution assignment and planes, for the rows i % stride == rem; a
@@ -55,6 +55,28 @@
 // that only loads the same tiles (3.6 against 3.0 us a launch at 720p
 // stride 3): what bounds it now is one wave of loads and the launch, not
 // the sums.
+//
+// segment_sum adds vals [V, N] into out [V, bins] by ids [N] (ids outside
+// [0, bins) drop); the CCA calls it with V = 2 (a plane of ones, the
+// component areas, and one that is zero but at leaders, the orphan
+// targets) over the 921,600 component ids of a 720p frame.  Its bound is
+// its bytes: ids and values read once (11 MB at 720p, 3.3 us at 3.35
+// TB/s; the caller's zero fill of out is a launch of its own).  One global
+// atomic a pixel and plane serialised in L2 instead, since component ids
+// come in runs along rows and a warp's 32 pixels hit one to three
+// addresses.  So it takes the update's design: a block takes a tile of
+// 1024 consecutive pixels, four a lane (16-byte loads when N % 4 == 0 and
+// the pointers are aligned, scalar loads otherwise); a lane sums its runs
+// of equal ids in registers; each run adds to the block's 256-slot table
+// (table_add, kSegVals planes a pass, the keys kept across passes), and
+// each used slot adds its nonzero sums to device memory once a block:
+// ~50-80 components a tile where there were 1024 pixels.  On the H100 that
+// took the call from 37 to 8.0-8.6 us of device time at 720p, 2.5x its
+// bytes: 900 blocks run in one wave, and each clears its table, loads its
+// tile, adds its runs and flushes behind two barriers, so what bounds it
+// now is that chain's latency, not the atomics (a lane's runs added
+// straight to device memory: 12.2 against 10.9 us a call with the zero
+// fill, scripts/kernel_variants.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -70,23 +92,37 @@ constexpr int kSlots = 256;                  // shared table slots a block
 constexpr int kProbes = 16;                  // probes before device atomics
 constexpr int kNone = -1;                    // empty slot; a dropped pixel
 
-// Add one run's [count, Σi, Σj, ΣL, Σa, Σb] to the block's table, or to
-// device memory (o: its column of out) when no slot is found.  A slot's key
-// only ever changes from kNone to an id, so a key read as set is final.
-__device__ __forceinline__ void table_add(int* keys, unsigned (*sums)[kSlots],
-                                          unsigned* o, long long bins, int id,
-                                          const unsigned (&v)[6]) {
+// The slot of id in the block's table, claimed if id has none yet, or -1
+// when no slot is found within kProbes.  A slot's key only ever changes
+// from kNone to an id, so a key read as set is final, and an id finds the
+// same slot (or none) on every call.
+__device__ __forceinline__ int table_slot(int* keys, int id) {
     int s = id & (kSlots - 1);
     for (int probe = 0; probe < kProbes; ++probe) {
         int cur = ((volatile int*)keys)[s];
         if (cur == kNone) cur = atomicCAS(keys + s, kNone, id);
-        if (cur == kNone || cur == id) {
-            for (int c = 0; c < 6; ++c) atomicAdd(&sums[c][s], v[c]);
-            return;
-        }
+        if (cur == kNone || cur == id) return s;
         s = (s + 1) & (kSlots - 1);
     }
-    for (int c = 0; c < 6; ++c) atomicAdd(o + c * bins, v[c]);
+    return -1;
+}
+
+// Add one run's first nv of NV sums (the update's [count, Σi, Σj, ΣL, Σa,
+// Σb], a segment sum's planes) to the block's table, or to device memory
+// when no slot is found: o is the run's entry of the first sum's row of
+// out, the rows `stride` apart (a frame offset goes into o).
+template <int NV>
+__device__ __forceinline__ void table_add(int* keys, unsigned (*sums)[kSlots],
+                                          unsigned* o, long long stride,
+                                          int id, const unsigned (&v)[NV],
+                                          int nv = NV) {
+    const int s = table_slot(keys, id);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+        if (c >= nv) break;
+        if (s >= 0) atomicAdd(&sums[c][s], v[c]);
+        else atomicAdd(o + c * stride, v[c]);
+    }
 }
 
 // kVec: W % 4 == 0, assignment and planes 16-byte and mask 4-byte aligned,
@@ -190,17 +226,94 @@ slic_update_kernel(const int32_t* __restrict__ assignment,
     }
 }
 
-__global__ void segment_sum_kernel(const int32_t* __restrict__ ids,
-                                   const int32_t* __restrict__ vals,
-                                   int32_t* __restrict__ out, int N, int V,
-                                   int bins) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= N) return;
-    int k = ids[p];
-    if (k < 0 || k >= bins) return;
-    for (int v = 0; v < V; ++v) {
-        int x = vals[(long long)v * N + p];
-        if (x != 0) atomicAdd(out + (long long)v * bins + k, x);
+constexpr int kSegThreads = 256;           // threads a segment-sum block
+constexpr int kSegTile = 4 * kSegThreads;  // pixels a block: four a lane
+constexpr int kSegVals = 2;                // planes a pass (the CCA's V)
+
+// kVec: N % 4 == 0, ids and vals 16-byte aligned, so a lane's four pixels
+// load as one int4 a plane.  Six blocks an SM (at most 42 registers a
+// thread), so a 720p call's 900 blocks run in about one wave
+template <bool kVec>
+__global__ void __launch_bounds__(kSegThreads, 6)
+segment_sum_kernel(const int32_t* __restrict__ ids,
+                   const int32_t* __restrict__ vals,
+                   unsigned* __restrict__ out, int N, int V, int bins) {
+    __shared__ int keys[kSlots];
+    __shared__ unsigned sums[kSegVals][kSlots];
+    for (int s = threadIdx.x; s < kSlots; s += kSegThreads) keys[s] = kNone;
+
+    const long long p = (long long)blockIdx.x * kSegTile + 4 * threadIdx.x;
+    int id[4] = {kNone, kNone, kNone, kNone};
+    if (kVec) {
+        if (p < N) {  // N % 4 == 0: the four pixels are in the array
+            const int4 k = __ldg(reinterpret_cast<const int4*>(ids + p));
+            id[0] = k.x; id[1] = k.y; id[2] = k.z; id[3] = k.w;
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+            if (p + q < N) id[q] = ids[p + q];
+    }
+    bool head[4];  // the first pixel of each run of equal ids in the lane
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        if (id[q] < 0 || id[q] >= bins) id[q] = kNone;
+        head[q] = id[q] != kNone && (q == 0 || id[q] != id[q - 1]);
+    }
+
+#pragma unroll 1
+    for (int v0 = 0; v0 < V; v0 += kSegVals) {
+        const int nv = min(kSegVals, V - v0);
+        unsigned x[kSegVals][4] = {};
+#pragma unroll
+        for (int c = 0; c < kSegVals; ++c) {
+            if (c >= nv) break;
+            const int32_t* pv = vals + (long long)(v0 + c) * N + p;
+            if (kVec) {
+                if (p < N) {
+                    const int4 y = __ldg(reinterpret_cast<const int4*>(pv));
+                    x[c][0] = y.x; x[c][1] = y.y; x[c][2] = y.z; x[c][3] = y.w;
+                }
+            } else {
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    if (p + q < N) x[c][q] = pv[q];
+            }
+        }
+        for (int s = threadIdx.x; s < kSlots; s += kSegThreads)
+            for (int c = 0; c < kSegVals; ++c) sums[c][s] = 0;
+        __syncthreads();  // keys set, sums zeroed
+
+        // pixel q's suffix sums up to the end of its run, so a run's first
+        // pixel holds the run's sums
+#pragma unroll
+        for (int q = 2; q >= 0; --q) {
+            const bool same = id[q] == id[q + 1];
+#pragma unroll
+            for (int c = 0; c < kSegVals; ++c)
+                x[c][q] += same ? x[c][q + 1] : 0;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (head[q]) {
+                unsigned v[kSegVals];
+#pragma unroll
+                for (int c = 0; c < kSegVals; ++c) v[c] = x[c][q];
+                table_add(keys, sums, out + (long long)v0 * bins + id[q],
+                          bins, id[q], v, nv);
+            }
+        }
+        __syncthreads();
+
+        for (int s = threadIdx.x; s < kSlots; s += kSegThreads) {
+            const int key = keys[s];
+            if (key == kNone) continue;
+            for (int c = 0; c < nv; ++c)
+                if (sums[c][s])
+                    atomicAdd(out + (long long)(v0 + c) * bins + key,
+                              sums[c][s]);
+        }
+        if (v0 + kSegVals < V) __syncthreads();  // before the sums reset
     }
 }
 
@@ -266,11 +379,14 @@ extern "C" int fstt_slic_update_masked(const void* assignment,
 // out: int32 [V, bins], zeroed by the caller; ids outside [0, bins) drop
 extern "C" int fstt_segment_sum(const void* ids, const void* vals, void* out,
                                 int N, int V, int bins, void* stream) {
-    if (N > 0) {
-        int threads = 256;
-        int blocks = (N + threads - 1) / threads;
-        segment_sum_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)ids, (const int32_t*)vals, (int32_t*)out, N, V,
+    if (N > 0 && V > 0) {
+        const int blocks = (int)(((long long)N + kSegTile - 1) / kSegTile);
+        const bool vec = N % 4 == 0 &&
+                         (((uintptr_t)ids | (uintptr_t)vals) & 15) == 0;
+        auto kernel = vec ? &segment_sum_kernel<true>
+                          : &segment_sum_kernel<false>;
+        kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, N, V,
             bins);
     }
     return (int)cudaGetLastError();

@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Device time a launch of the assign kernel, the SLIC update sums (plain
-and masked), the CCA's components, lookup and orphan chase and the f32
-segment sum (with whatever groups its pixels), at B=1 and in a stacked
-batch of four frames, on a CUDA GPU.
+"""Device time a launch of the assign kernels (quantized and float), the
+SLIC update sums (plain and masked), the CCA's components, segment sum,
+lookup and orphan chase and the f32 segment sum (with whatever groups its
+pixels), at B=1 and in a stacked batch of four frames, on a CUDA GPU.
 
     python3 scripts/kernel_profile.py [--root DIR]
 
 Runs one steady frame each of `SlicAvx2(num_components=1600)`,
-`SlicAvx2(num_components=1600, preemptive=True)` (the masked update) and
-`LSCAvx2(num_components=1600)` at 1280x720 (the frames of chip_smoke.py),
-and one steady batch of `BatchedSlic(num_components=1600,
-batch_mode="stack")` on four such frames, also with `preemptive=True`,
-under torch.profiler, and prints,
-for each, the run's device launches and busy share and every device kernel
-whose name names one of those calls (the assign kernel, the update
-kernels, the LAB conversion, LSC's colour features, the CCA's components
-kernels, lookup and chase, the f32 segment sum and its sort, scan and
-search launches), with its launches and device microseconds a launch; then
-the same for 20 calls of the assign kernel alone on a mid-loop state of the
-first frame, at stride 3 and at stride 1.  The frames go through the
-public API and the assign calls through the pipeline's stages, so
+`SlicAvx2(num_components=1600, preemptive=True)` (the masked update),
+`LSCAvx2(num_components=1600)` and `SlicRealDist(num_components=1600)` at
+1280x720 (the frames of chip_smoke.py), and one steady batch of
+`BatchedSlic(num_components=1600, batch_mode="stack")` on four such
+frames, also with `preemptive=True` and with `variant="real_noq"`, under
+torch.profiler, and prints, for each, the run's device launches and busy
+share and every device kernel whose name names one of those calls (the
+assign kernels, the update kernels, the LAB conversion, LSC's colour
+features, the CCA's components kernels, segment sum, lookup and chase, the
+f32 segment sum and its sort, scan and search launches), with its launches
+and device microseconds a launch.  Then the same for 20 calls of a kernel
+alone: the assign kernel on a mid-loop state (setup and three loop
+iterations) of the first frame, at stride 3 and at stride 1; the float
+assign of each variant (real, real_l2, real_noq, lsc) on that variant's
+mid-loop state of the first frame and of the four frames stacked (B=4),
+at stride 3 and at stride 1; and the CCA's segment sum on the component
+ids and values of the first frame's raw assignment (every device launch
+listed: the output's zero fill beside the kernel).  The frames go through
+the public API and the kernel calls through the pipeline's stages, so
 ``--root`` may name another checkout of the port (default: the one holding
 this script) and two versions can be profiled in one run on one card.
 Prints one JSON line.
@@ -41,13 +47,15 @@ WATCH = ("slic_update_kernel", "lab_kernel", "lsc_feat_kernel",
          "lookup_kernel", "resolve_orphans_kernel", "fsegsum_kernel",
          "fs_rank", "fs_scan", "fs_scatter", "fs_sum", "RadixSort",
          "radixSort", "searchsorted", "assign_kernel", "cc_init",
-         "cc_merge", "cc_local", "cc_seams", "cc_flatten")
+         "cc_merge", "cc_local", "cc_seams", "cc_flatten",
+         "assign_float_kernel", "segment_sum_kernel")
+FLOAT_VARIANTS = ("real", "real_l2", "real_noq", "lsc")
 
 
-def profiled(run):
+def profiled(run, watch=WATCH):
     """torch.profiler over ``run()``: wall µs, device busy µs, device
-    launches and, for each watched kernel, its launches and device µs a
-    launch."""
+    launches and, for each watched kernel (every kernel when ``watch`` is
+    None), its launches and device µs a launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -66,7 +74,7 @@ def profiled(run):
             continue
         busy += us
         launches += e.count
-        if any(w in e.key for w in WATCH):
+        if watch is None or any(w in e.key for w in watch):
             rows[e.key[:100]] = {"launches": e.count,
                                  "us_per_launch": us / e.count}
     return {"wall_us": wall_us, "busy_us": busy, "launches": launches,
@@ -109,6 +117,90 @@ def profile_assign(frame, K, reps=20):
     return out
 
 
+def float_state(frame, K, variant):
+    """(planes, table, cand, assignment, feats, cent, coef, S) of the float
+    assign on a mid-loop state of one frame (setup and three loop
+    iterations); feats and cent are None but for lsc."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    H, W = frame.shape[:2]
+    cfg = StaticConfig(H=H, W=W, K=K, variant=variant)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    st = cl.initialize_clusters(frame, K).to_torch("cuda")
+    planes, st, (feats, weights, cent) = pipeline.stage_setup(
+        torch.from_numpy(frame).cuda(), st, cfg, scal)
+    st, a, cent, _ = pipeline.stage_loop(planes, st, (feats, weights, cent),
+                                         cfg, scal, 3, 3)
+    st = pipeline._clamp_centers(st, cfg)
+    cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+    return (planes, pipeline.center_table(st), cand, a, feats, cent,
+            scal.coef, cfg.S)
+
+
+def profile_assign_float(frames, K, reps=20):
+    """The float assign alone, each variant: ``reps`` calls at stride 3 and
+    at stride 1 on the first frame's mid-loop state (B=1) and on the four
+    frames' states stacked along the frame axis (B=4)."""
+    import torch
+    from fast_slic_tpu_torch.kernels import assign_float
+    out = {}
+    for variant in FLOAT_VARIANTS:
+        states = [float_state(f, K, variant) for f in frames]
+        coef, S = states[0][6], states[0][7]
+        for B in (1, len(frames)):
+            if B == 1:
+                planes, table, cand, a, feats, cent = states[0][:6]
+            else:
+                # frame axis: planes [3, B, H, W], feats [10, B, H, W],
+                # every other argument a leading [B]
+                dims = (1, 0, 0, 0, 1, 0)
+                planes, table, cand, a, feats, cent = (
+                    None if xs[0] is None else torch.stack(xs, d)
+                    for xs, d in zip(zip(*(s[:6] for s in states)), dims))
+            for stride in (3, 1):
+                def run(stride=stride, args=(planes, table, cand, a),
+                        lsc=(feats, cent)):
+                    for _ in range(reps):
+                        assign_float.assign_float(
+                            *args, coef, S, stride, 0, variant, True, None,
+                            *lsc)
+                run()
+                out["assign_float %s alone B=%d, stride %d"
+                    % (variant, B, stride)] = profiled(run)
+    return out
+
+
+def profile_segment_sum(frame, K, reps=20):
+    """The CCA's segment sum alone: ``reps`` calls on the component ids and
+    values (area ones, leader targets) of the frame's raw assignment, as
+    ``ops.cca.cca_parts`` makes them; every device launch listed."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    from fast_slic_tpu_torch.kernels import cca, segsum
+    from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
+    H, W = frame.shape[:2]
+    n = H * W
+    cfg = StaticConfig(H=H, W=W, K=K)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    raw = pipeline.iterate_graph(
+        torch.from_numpy(frame).cuda(),
+        cl.initialize_clusters(frame, K).to_torch("cuda"), cfg, scal, 10,
+        3).raw_assignment
+    L = cca.connected_components(raw.contiguous()).reshape(-1)
+    is_leader, rank, _ = leader_ranks(L)
+    comp2 = cca.lookup(L, rank).reshape(H, W)
+    ids = comp2.reshape(-1)
+    vals = segsum_values(comp2, is_leader).contiguous()
+
+    def run():
+        for _ in range(reps):
+            segsum.segment_sum(ids, vals, n)
+    run()
+    return {"segment_sum alone (CCA ids, V=2)": profiled(run, None)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -123,21 +215,25 @@ def main() -> int:
     from chip_smoke import BATCH, H720, K720, W720, make_frames
     sys.path.insert(0, os.path.abspath(args.root))
     sys.modules.pop("fast_slic_tpu_torch", None)
-    from fast_slic_tpu_torch import LSCAvx2, SlicAvx2
+    from fast_slic_tpu_torch import LSCAvx2, SlicAvx2, SlicRealDist
     from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
-    frames = make_frames(2, H720, W720)
+    frames = make_frames(BATCH, H720, W720)
     more = make_frames(2 * BATCH, H720, W720, seed=1)
     out = {"root": os.path.abspath(args.root),
            "device": torch.cuda.get_device_name(0)}
     for name, cls, kw in (("SlicAvx2", SlicAvx2, {}),
                           ("SlicAvx2 preemptive", SlicAvx2,
                            {"preemptive": True}),
-                          ("LSCAvx2", LSCAvx2, {})):
+                          ("LSCAvx2", LSCAvx2, {}),
+                          ("SlicRealDist", SlicRealDist, {})):
         slic = cls(num_components=K720, device="cuda", **kw)
         out[name] = profile_frame(slic, frames[0], frames[1])
     out.update(profile_assign(frames[0], K720))
-    for name, kw in (("", {}), (" preemptive", {"preemptive": True})):
+    out.update(profile_assign_float(frames, K720))
+    out.update(profile_segment_sum(frames[0], K720))
+    for name, kw in (("", {}), (" preemptive", {"preemptive": True}),
+                     (" real_noq", {"variant": "real_noq"})):
         bs = BatchedSlic(num_components=K720, batch_mode="stack",
                          device="cuda", **kw)
         out["BatchedSlic stack B=%d%s" % (BATCH, name)] = profile_frame(

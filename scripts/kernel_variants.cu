@@ -12,9 +12,25 @@
 // staged in shared memory by 16-byte loads before the slot loop (0); the
 // library's kernel with one row group of 8 rows a block (1), or without the
 // spatial table (2).
+//
+// assign_float_variant: the library's float assign with G row groups of R
+// consecutive rows a thread (a cell row's rows split over as many blocks as
+// make one step each), the pixels loaded after the staging unless
+// "prefetch" (the first step's before it): G=2, R=4, prefetch, with a
+// thread's rows G apart, so that every thread's rows span the cell row (0,
+// the first design); G=2, R=4, prefetch (1, the second); G=2, R=4 (2);
+// G=1, R=8, prefetch (3); G=4, R=2, prefetch (4); G=2, R=2, prefetch (5);
+// G=4, R=1, prefetch (6); G=1, R=4, prefetch (7, the third); G=1, R=2,
+// prefetch (8); G=1, R=2 (9); G=1, R=4 (10, as the library).
+//
+// segsum_variant: the segment sum as one global atomic a pixel and nonzero
+// value, a thread a pixel (0: the design before the shared table), or a
+// lane's runs of four pixels summed in registers, each run adding to
+// device memory (1: the runs without the table).
 
 #include "../fast_slic_tpu_torch/csrc/cca.cu"
 #include "../fast_slic_tpu_torch/csrc/assign.cu"
+#include "../fast_slic_tpu_torch/csrc/assign_float.cu"
 
 namespace {
 
@@ -286,6 +302,43 @@ int run_staged(const void* planes, const void* table, const void* cand,
     return (int)cudaGetLastError();
 }
 
+__global__ void segsum_atomics(const int32_t* __restrict__ ids,
+                               const int32_t* __restrict__ vals,
+                               int32_t* __restrict__ out, int N, int V,
+                               int bins) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= N) return;
+    const int k = ids[p];
+    if (k < 0 || k >= bins) return;
+    for (int v = 0; v < V; ++v) {
+        const int x = vals[(long long)v * N + p];
+        if (x != 0) atomicAdd(out + (long long)v * bins + k, x);
+    }
+}
+
+// a lane's four pixels (scalar loads), its runs summed in registers
+__global__ void segsum_runs(const int32_t* __restrict__ ids,
+                            const int32_t* __restrict__ vals,
+                            unsigned* __restrict__ out, int N, int V,
+                            int bins) {
+    const long long p = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+    if (p >= N) return;
+    int id[4];
+    for (int q = 0; q < 4; ++q) {
+        id[q] = p + q < N ? ids[p + q] : -1;
+        if (id[q] < 0 || id[q] >= bins) id[q] = -1;
+    }
+    for (int v = 0; v < V; ++v) {
+        unsigned x[4];
+        for (int q = 0; q < 4; ++q)
+            x[q] = p + q < N ? vals[(long long)v * N + p + q] : 0;
+        for (int q = 2; q >= 0; --q) x[q] += id[q] == id[q + 1] ? x[q + 1] : 0;
+        for (int q = 0; q < 4; ++q)
+            if (id[q] >= 0 && (q == 0 || id[q] != id[q - 1]) && x[q])
+                atomicAdd(out + (long long)v * bins + id[q], x[q]);
+    }
+}
+
 }  // namespace
 
 // v 0: union-find local step, 1: the same with path halving
@@ -332,4 +385,47 @@ extern "C" int assign_variant(int v, const void* planes, const void* table,
                                              min_dists, coef, H, W, S, GH, GW,
                                              C, stride, rem, manhattan, K, B,
                                              s);
+}
+
+// v: the variant numbers above
+extern "C" int assign_float_variant(
+    int v, const void* planes, const void* feats, const void* table,
+    const void* cent, const void* cand, void* assignment, void* min_dists,
+    float coef, int H, int W, int S, int GH, int GW, int C, int stride,
+    int rem, int variant, int manhattan, int K, int B, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+#define FSTT_VARIANT(G, R, P, SP)                                            \
+    fassign::run_assign_float<G, R, P, SP>(                                  \
+        planes, feats, table, cent, cand, assignment, min_dists, coef, H, W, \
+        S, GH, GW, C, stride, rem, variant, manhattan, K, B, s)
+    switch (v) {
+        case 0: return FSTT_VARIANT(2, 4, true, true);
+        case 1: return FSTT_VARIANT(2, 4, true, false);
+        case 2: return FSTT_VARIANT(2, 4, false, false);
+        case 3: return FSTT_VARIANT(1, 8, true, false);
+        case 4: return FSTT_VARIANT(4, 2, true, false);
+        case 5: return FSTT_VARIANT(2, 2, true, false);
+        case 6: return FSTT_VARIANT(4, 1, true, false);
+        case 7: return FSTT_VARIANT(1, 4, true, false);
+        case 8: return FSTT_VARIANT(1, 2, true, false);
+        case 9: return FSTT_VARIANT(1, 2, false, false);
+        default: return FSTT_VARIANT(1, 4, false, false);
+    }
+#undef FSTT_VARIANT
+}
+
+// v 0: a global atomic a pixel and value, 1: a lane's runs to device memory
+extern "C" int segsum_variant(int v, const void* ids, const void* vals,
+                              void* out, int N, int V, int bins,
+                              void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (v == 0)
+        segsum_atomics<<<(N + 255) / 256, 256, 0, s>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (int32_t*)out, N, V,
+            bins);
+    else
+        segsum_runs<<<(N + 1023) / 1024, 256, 0, s>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, N, V,
+            bins);
+    return (int)cudaGetLastError();
 }

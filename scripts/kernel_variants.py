@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Device time of the CCA components and the assign kernel beside the
-variants their designs were chosen from, at 1280x720, K=1600, on a CUDA GPU.
+"""Device time of the CCA components, the assign kernels (quantized and
+float) and the segment sum beside the variants their designs were chosen
+from, at 1280x720, K=1600, on a CUDA GPU.
 
     python3 scripts/kernel_variants.py
 
 Builds ``scripts/kernel_variants.cu`` (which includes the library's
-``csrc/cca.cu`` and ``csrc/assign.cu``) with the library's nvcc flags into
+``csrc/cca.cu``, ``csrc/assign.cu`` and ``csrc/assign_float.cu``) with the
+library's nvcc flags into
 ``build/kernel_variants/``, makes real inputs (the raw assignments of
 SlicAvx2's loop on the four frames of chip_smoke.py, one frame's and the
 stacked [4*720, 1280] map that ``ops.cca.framed_components`` builds; a
@@ -23,7 +25,24 @@ torch.profiler run.  Calls:
   groups of 4 rows, each thread loading its own pixels, the spatial
   table); ``staged_rows`` (each step's rows staged in shared memory by
   16-byte loads before the slot loop); ``one_group`` (one row group of 8
-  rows a block); ``no_table`` (the spatial term computed in the loop).
+  rows a block); ``no_table`` (the spatial term computed in the loop);
+- float assign, on a mid-loop state of each variant (as
+  ``scripts/kernel_profile.py`` makes it): lsc, real_noq and real at
+  stride 3 and 1, real_l2 at stride 3, lsc on four stacked frames at
+  stride 3 and 1 and real_noq on four at stride 3:
+  ``library`` (records staged once a cell, one row group of 4 consecutive
+  rows a thread, a cell row's rows split over as many blocks as make one
+  step each, each thread's pixels loaded after the staging) beside
+  ``gGrR`` for G, R in (2, 4), (1, 8), (4, 2), (2, 2), (4, 1), (1, 2) and
+  ``g1r4_prefetch``, each with the first step's pixels loaded before the
+  staging, ``g2r4_rows_apart`` (the same with a thread's rows G apart, so
+  that each spans the cell row: the first design), ``g2r4_no_prefetch``
+  and ``g1r2_no_prefetch``;
+- segment sum, on the CCA's component ids and values of the first frame's
+  raw assignment: ``library`` (a lane's runs, then the block's shared
+  table, one atomic a slot and plane); ``atomics`` (one global atomic a
+  pixel and nonzero value); ``runs_only`` (a lane's runs, each to device
+  memory).
 
 Prints the card's name and power limit, then one JSON line of device
 microseconds a call (all of a call's launches) and a launch by kernel.
@@ -40,10 +59,15 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CC_VARIANTS = {"union_find": 0, "union_find_halving": 1}
 ASSIGN_VARIANTS = {"staged_rows": 0, "one_group": 1, "no_table": 2}
+FLOAT_VARIANTS = {"g2r4_rows_apart": 0, "g2r4": 1, "g2r4_no_prefetch": 2,
+                  "g1r8": 3, "g4r2": 4, "g2r2": 5, "g4r1": 6,
+                  "g1r4_prefetch": 7, "g1r2": 8, "g1r2_no_prefetch": 9}
+SEGSUM_VARIANTS = {"atomics": 0, "runs_only": 1}
+VARIANT_CODE = {"real": 0, "real_l2": 1, "real_noq": 2, "lsc": 3}
 
 
 def build():
-    """Compile the variants; returns their two C entry points."""
+    """Compile the variants; returns their four C entry points."""
     from fast_slic_tpu_torch.kernels import _lib
     out_dir = os.path.join(ROOT, "build", "kernel_variants")
     os.makedirs(out_dir, exist_ok=True)
@@ -55,9 +79,13 @@ def build():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.cc_variant.argtypes = [I, P, P, I, I, P]
     lib.assign_variant.argtypes = [I, P, P, P, P, P, F] + [I] * 11 + [P]
-    for fn in (lib.cc_variant, lib.assign_variant):
+    lib.assign_float_variant.argtypes = [I] + [P] * 7 + [F] + [I] * 12 + [P]
+    lib.segsum_variant.argtypes = [I, P, P, P, I, I, I, P]
+    fns = (lib.cc_variant, lib.assign_variant, lib.assign_float_variant,
+           lib.segsum_variant)
+    for fn in fns:
         fn.restype = I
-    return lib.cc_variant, lib.assign_variant
+    return fns
 
 
 def inputs(dev):
@@ -128,6 +156,106 @@ def in_turns(calls):
     return runs
 
 
+def float_cases(float_variant, result):
+    """The float assign and its variants, held against the plain version,
+    then profiled in turns."""
+    import torch
+    from chip_smoke import H720, K720, W720, make_frames
+    from fast_slic_tpu_torch.kernels import _lib, assign_float
+    from kernel_profile import float_state
+
+    frames = make_frames(4, H720, W720)
+    for variant, B, strides in (("lsc", 1, (3, 1)), ("real_noq", 1, (3, 1)),
+                                ("real", 1, (3, 1)), ("real_l2", 1, (3,)),
+                                ("lsc", 4, (3, 1)), ("real_noq", 4, (3,))):
+        states = [float_state(f, K720, variant) for f in frames[:B]]
+        coef, S = states[0][6], states[0][7]
+        if B == 1:
+            planes, table, cand, a0, feats, cent = states[0][:6]
+        else:
+            planes, table, cand, a0, feats, cent = (
+                None if xs[0] is None else torch.stack(xs, d)
+                for xs, d in zip(zip(*(s[:6] for s in states)),
+                                 (1, 0, 0, 0, 1, 0)))
+        H, W = a0.shape[-2:]
+        GH, GW, C = cand.shape[-3:]
+        lsc = (feats, cent)
+        for stride in strides:
+            ref = a0.clone()
+            ref_md = torch.full(ref.shape, -1.0, device=ref.device)
+            assign_float.plain(planes, table, cand, ref, coef, S, stride, 0,
+                               variant, True, ref_md, *lsc)
+            a = a0.clone()
+
+            def run(v, a=a, md=None):
+                err = float_variant(
+                    v, planes.data_ptr(),
+                    None if feats is None else feats.data_ptr(),
+                    table.data_ptr(),
+                    None if cent is None else cent.data_ptr(),
+                    cand.data_ptr(), a.data_ptr(),
+                    None if md is None else md.data_ptr(), float(coef), H, W,
+                    S, GH, GW, C, stride, 0, VARIANT_CODE[variant], 1, K720,
+                    B, _lib.stream())
+                if err:
+                    raise RuntimeError("assign_float_variant %d: cudaError "
+                                       "%d" % (v, err))
+
+            calls = {"library": lambda a=a, stride=stride:
+                     assign_float.assign_float(planes, table, cand, a, coef,
+                                               S, stride, 0, variant, True,
+                                               None, *lsc)}
+            got, md = a0.clone(), torch.full_like(ref_md, -1.0)
+            assign_float.assign_float(planes, table, cand, got, coef, S,
+                                      stride, 0, variant, True, md, *lsc)
+            checks = {"library": (got, md)}
+            for vname, v in FLOAT_VARIANTS.items():
+                calls[vname] = lambda v=v: run(v)
+                got, md = a0.clone(), torch.full_like(ref_md, -1.0)
+                run(v, got, md)
+                checks[vname] = (got, md)
+            for vname, (got, md) in checks.items():
+                if not (torch.equal(got, ref) and torch.equal(md, ref_md)):
+                    raise RuntimeError("float assign %s differs from the "
+                                       "plain version" % vname)
+            result["cases"]["assign_float %s B=%d stride %d"
+                            % (variant, B, stride)] = in_turns(calls)
+
+
+def segsum_cases(segsum_variant, raw, result):
+    """The CCA's segment sum and its variants on one frame's component ids,
+    held against the plain version, then profiled in turns (each call with
+    its zero fill of the output)."""
+    import torch
+    from fast_slic_tpu_torch.kernels import _lib, cca, segsum
+    from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
+
+    L = cca.connected_components(raw.contiguous()).reshape(-1)
+    is_leader, rank, _ = leader_ranks(L)
+    comp2 = cca.lookup(L, rank).reshape(raw.shape)
+    ids = comp2.reshape(-1)
+    vals = segsum_values(comp2, is_leader).contiguous()
+    V, n = vals.shape
+    ref = segsum.segment_sum_plain(ids, vals, n)
+
+    def run(v):
+        out = torch.zeros((V, n + 1), dtype=torch.int32, device=ids.device)
+        err = segsum_variant(v, ids.data_ptr(), vals.data_ptr(),
+                             out.data_ptr(), n, V, n + 1, _lib.stream())
+        if err:
+            raise RuntimeError("segsum_variant %d: cudaError %d" % (v, err))
+        return out
+
+    calls = {"library": lambda: segsum.segment_sum(ids, vals, n)}
+    for vname, v in SEGSUM_VARIANTS.items():
+        calls[vname] = lambda v=v: run(v)
+    for vname, call in calls.items():
+        if not torch.equal(call(), ref):
+            raise RuntimeError("segment sum %s differs from the plain "
+                               "version" % vname)
+    result["cases"]["segment_sum (CCA ids, V=2)"] = in_turns(calls)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -140,7 +268,7 @@ def main() -> int:
 
     print(gpu_line(), flush=True)
     dev = torch.device("cuda")
-    cc_variant, assign_variant = build()
+    cc_variant, assign_variant, float_variant, segsum_variant = build()
     raws, states, cfg, scal = inputs(dev)
     result = {"device": torch.cuda.get_device_name(0), "cases": {}}
 
@@ -207,6 +335,8 @@ def main() -> int:
                 raise RuntimeError("assign differs from the plain version")
             result["cases"]["assign B=%d stride %d" % (B, stride)] = (
                 in_turns(calls))
+    float_cases(float_variant, result)
+    segsum_cases(segsum_variant, raws[0], result)
     print(json.dumps(result))
     return 0
 

@@ -12,6 +12,11 @@ wrapper (its plain version on the CPU).  Tolerances:
   features and centroids: exact (both sum the ten squares left to right);
 * lsc against ``assign_xla``: label agreement >= 0.999 (its ``jnp.sum``
   may add the ten squares in another order).
+
+The cases the card's kernel stages in shared memory are anchored here too:
+48 candidate slots, a patch of inactive clusters (cells with no candidate
+keep their old value, min_dists FLT_MAX) and real_noq centres a hair
+either side of a whole pixel (its window edges).
 """
 
 import numpy as np
@@ -44,7 +49,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _inputs(rng, variant, manhattan=True):
+def _inputs(rng, variant, manhattan=True, cand_slots=16):
     """LAB planes, a cluster state with fractional centres and colours and
     an old assignment (numpy, shared by both packages), and the configs."""
     image = make_image(rng, H, W)
@@ -57,7 +62,8 @@ def _inputs(rng, variant, manhattan=True):
     st.g = (st.g + 0.25).astype(np.float32)
     old = rng.integers(0, K, size=(H, W)).astype(np.int32)
     old[rng.random((H, W)) < 0.1] = UNASSIGNED
-    flags = dict(variant=variant, manhattan_spatial_dist=manhattan)
+    flags = dict(variant=variant, manhattan_spatial_dist=manhattan,
+                 cand_slots=cand_slots)
     return (image, planes, st, old, JaxConfig(H=H, W=W, K=K, **flags),
             StaticConfig(H=H, W=W, K=K, **flags))
 
@@ -102,6 +108,33 @@ def test_float_assign_matches_assign_xla(rng, variant, manhattan, stride,
     np.testing.assert_array_equal(md, np.asarray(ref.min_dists))
     skip = (np.arange(H) % stride) != rem
     np.testing.assert_array_equal(a[skip], old[skip])
+
+
+@pytest.mark.parametrize("variant", ["real", "real_l2", "real_noq"])
+@pytest.mark.parametrize("case", ["slots_48", "inactive_patch", "noq_edges"])
+def test_float_assign_cases_match_assign_xla(rng, variant, case):
+    _, planes, st, old, cfg_j, cfg_t = _inputs(
+        rng, variant, cand_slots=48 if case == "slots_48" else 16)
+    if case == "inactive_patch":
+        st.is_active[(st.y >= 16) & (st.y < 80) & (st.x >= 16)
+                     & (st.x < 112)] = 0
+    if case == "noq_edges":
+        for f, hi in (("y", H - 1), ("x", W - 1)):
+            v = np.round(getattr(st, f)) + rng.choice([-1e-3, 1e-3], K)
+            setattr(st, f, np.clip(v, 0, hi).astype(np.float32))
+    stride, rem = 3, 1
+    scal = jpipe.derive_scalars(cfg_j, 10.0, 0.25, 0.05)
+    stj = _jax_state(st)
+    cand_j, _ = jpipe.build_candidates(stj.y, stj.x, stj.is_active, cfg_j)
+    ref = jpipe.assign_xla(jnp.asarray(planes), stj, cand_j, cfg_j,
+                           scal.coef, jnp.asarray(old), rem, stride)
+    a, md = _port_pass(planes, st, old, cfg_t, stride, rem)
+    np.testing.assert_array_equal(a, np.asarray(ref.assignment))
+    np.testing.assert_array_equal(md, np.asarray(ref.min_dists))
+    if case == "inactive_patch":
+        none = md == F32_MAX
+        assert none[rem::stride].any()
+        np.testing.assert_array_equal(a[none], old[none])
 
 
 def _lsc_inputs(rng):

@@ -12,12 +12,16 @@ components on one label, superpixels across every tile seam, a serpentine,
 1 x n, n x 1 and 33 x 33 maps and the stacked map of four frames; the
 assign on cells without candidates, 4 and 48 slots, K=6000, W=1277, a view
 off the 16-byte boundary, S=21, 67 and 151, duplicate centres and three
-stacked frames, each remainder and both distances) and the float assign's distances must
-be equal;
+stacked frames, each remainder and both distances; the float assign on the
+same cases and real_noq centres a hair either side of a whole pixel, for
+each variant) and the float assign's distances must be equal;
 the LSC colour features too, and so must both update sums on each branch
 of their kernels (superpixel-like tiles, one cluster whose sums wrap,
 random ids that overflow the shared table, ragged and misaligned rows,
-empty and full masks), the per-frame
+empty and full masks), the segment sum (the CCA's ids and values of a 720p
+superpixel map, runs, one id, random ids over more bins than its table,
+ids outside the bins, which drop, sums that wrap, 1, 2, 3 and 5 planes, a
+ragged length and a misaligned view), the per-frame
 segment sum and the frame-axis launches of assign, float assign and
 update.  The f32 segment sum must equal its plain version on the CPU,
 whose order of addition it keeps, and give the same sums on every run
@@ -42,7 +46,8 @@ from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.kernels import (assign, assign_float, cca, fsegsum,
                                          lab, lsc_feat, segsum)
-from fast_slic_tpu_torch.ops.cca import cca_parts, orphan_tables
+from fast_slic_tpu_torch.ops.cca import (cca_parts, leader_ranks,
+                                         orphan_tables, segsum_values)
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
@@ -519,14 +524,16 @@ def test_slic_update_kernel_cases(cuda, rng, case, masked, stride, rem):
             segsum.slic_update_plain(a, planes, K, stride, rem))
 
 
-def _assign_case(rng, dev, case, manhattan):
+def _assign_case(rng, dev, case, manhattan, variant="standard"):
     """(planes, table, cand, old assignment, coef, S) of one assign case;
-    a leading frame dim for frames_3."""
+    a leading frame dim for frames_3.  A float variant's centres get
+    fractional colours (real_noq's float means)."""
     B = 3 if case == "frames_3" else 1
     H, W, K = {"k6000": (720, 1280, 6000), "w1277": (131, 1277, 290),
                "s21": (240, 384, 200), "s67": (240, 384, 20),
                "s151": (240, 384, 4)}.get(case, (240, 384, 160))
-    cfg = StaticConfig(H=H, W=W, K=K, manhattan_spatial_dist=manhattan,
+    cfg = StaticConfig(H=H, W=W, K=K, variant=variant,
+                       manhattan_spatial_dist=manhattan,
                        cand_slots={"slots_4": 4, "slots_48": 48}.get(case, 16))
     sts = []
     for _ in range(B):
@@ -547,6 +554,16 @@ def _assign_case(rng, dev, case, manhattan):
             # no candidate
             st.is_active[(st.y >= 48) & (st.y < 168) & (st.x >= 96)
                          & (st.x < 264)] = 0
+        if case == "noq_edges":
+            # centres a hair either side of a whole pixel, so that real_noq's
+            # window edges trunc(c - S) and trunc((c + S) + 1) fall on both
+            # sides of a row and a column
+            for f, hi in (("y", H - 1), ("x", W - 1)):
+                v = np.round(getattr(st, f)) + rng.choice([-1e-3, 1e-3], K)
+                setattr(st, f, np.clip(v, 0, hi).astype(np.float32))
+        if variant != "standard":
+            st.r = (st.r + 0.37).astype(np.float32)
+            st.g = (st.g + 0.61).astype(np.float32)
         sts.append(st)
     st = tcl.clusters_from_numpy(*(np.stack(xs) for xs in zip(
         *(s.fields() for s in sts)))).to_torch(dev)
@@ -597,6 +614,96 @@ def test_assign_kernel_cases(cuda, rng, case, stride, rem, manhattan):
         none = outs[0][1] == UNASSIGNED
         assert bool(none.any())
         _eq(outs[0][0][none], old[none])
+
+
+FLOAT_VARIANTS = [("real", True), ("real", False), ("real_l2", True),
+                  ("real_noq", True), ("real_noq", False), ("lsc", True)]
+
+
+# the float assign stages each cell's candidate records in shared memory
+# and walks a thread's rows per slot: the quantized assign's cases, and
+# real_noq's window edges
+@pytest.mark.parametrize("variant,manhattan", FLOAT_VARIANTS)
+@pytest.mark.parametrize("stride,rem", [(3, 0), (3, 1), (3, 2), (1, 0)])
+@pytest.mark.parametrize("case", ASSIGN_CASES + ["noq_edges"])
+def test_assign_float_kernel_cases(cuda, rng, case, stride, rem, variant,
+                                   manhattan):
+    planes, table, cand, old, coef, S = _assign_case(rng, cuda, case,
+                                                     manhattan, variant)
+    feats = torch.from_numpy(rng.random((10,) + tuple(old.shape),
+                                        np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.random(tuple(table.shape[:-1]) + (10,),
+                                       np.float32)).to(cuda)
+    if case == "offset":
+        feats = _offset(feats)
+    outs = []
+    for fn in (assign_float.assign_float, assign_float.plain):
+        a = old.clone()
+        md = torch.full(a.shape, -1.0, device=cuda)
+        fn(planes, table, cand, a, coef, S, stride, rem, variant, manhattan,
+           md, feats, cent)
+        outs.append((a, md))
+    _eq(outs[0][0], outs[1][0])
+    _eq(outs[0][1], outs[1][1])
+    if case == "inactive_patch":
+        # nothing won there: the old value stays, min_dists reads FLT_MAX
+        none = outs[0][1] == assign_float.F32_MAX
+        assert bool(none.any())
+        _eq(outs[0][0][none], old[none])
+
+
+def test_segment_sum_kernel_cca_720p(cuda, rng):
+    # the CCA's own call: component ids of a 720p superpixel map, a plane of
+    # ones and one of leader targets
+    raw = torch.from_numpy(_superpixels(rng, 1, 720, 1280)[0][0]).to(cuda)
+    L = cca.connected_components(raw).reshape(-1)
+    is_leader, rank, _ = leader_ranks(L)
+    comp2 = cca.lookup(L, rank).reshape(raw.shape)
+    vals = segsum_values(comp2, is_leader).contiguous()
+    ids = comp2.reshape(-1)
+    _eq(segsum.segment_sum(ids, vals, ids.numel()),
+        segsum.segment_sum_plain(ids, vals, ids.numel()))
+
+
+def _runs(rng, N):
+    """Ids in runs of 1-47 equal ids, rising, as component ids lie."""
+    return np.repeat(np.arange(N), rng.integers(1, 48, N))[:N]
+
+
+# the kernel sums a lane's runs of equal ids, then a block's in a shared
+# table: runs, one id over all pixels, random ids over more bins than the
+# table holds (device atomics), ids outside [0, bins) (dropped), sums that
+# wrap int32, a length that is not a multiple of 4 and views off the
+# 16-byte boundary (the scalar loads)
+SEGSUM_CASES = ["runs", "one_id", "random", "outside", "wrap", "ragged",
+                "offset"]
+
+
+@pytest.mark.parametrize("V", [1, 2, 3, 5])
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+def test_segment_sum_kernel_cases(cuda, rng, case, V):
+    N, S = (100003 if case == "ragged" else 100000), 30000
+    if case == "one_id":
+        ids = np.full(N, 7)
+    elif case == "random":
+        ids = rng.integers(0, S + 1, N)
+    elif case == "outside":
+        ids = rng.integers(-50, S + 50, N)
+    else:
+        ids = _runs(rng, N)
+    vals = rng.integers(0, 1 << 20, size=(V, N))
+    if case == "wrap":
+        vals = rng.integers(-(1 << 31), 1 << 31, size=(V, N))
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
+    if case == "offset":
+        ids, vals = _offset(ids), _offset(vals)
+        assert ids.data_ptr() % 16 == 4 and vals.data_ptr() % 16 == 4
+    # the plain version takes ids in [0, S]; the kernel drops the others
+    keep = (ids >= 0) & (ids <= S)
+    _eq(segsum.segment_sum(ids, vals, S),
+        segsum.segment_sum_plain(ids[keep].contiguous(),
+                                 vals[:, keep].contiguous(), S))
 
 
 def test_framed_segment_sum_kernel_matches_plain(cuda, rng):

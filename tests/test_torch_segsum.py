@@ -103,6 +103,25 @@ def test_segment_sum_matches_pallas_interpret(rng, coherent):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("V", [1, 2, 5])
+def test_segment_sum_runs_and_last_bin_match_pallas_interpret(rng, V):
+    # runs of equal ids (as component ids lie along rows, the layout the
+    # card's kernel sums on chip) and a tenth of the pixels in bin S, the
+    # bin past the S real ones where callers put what they drop (the JAX
+    # function's contract is ids in [0, S]; the card's kernel also drops ids
+    # outside [0, S], held against this plain version in
+    # tests/test_torch_gpu.py)
+    N, S = 5000, 400
+    ids = np.minimum(np.repeat(np.arange(N), rng.integers(1, 48, N))[:N], S)
+    ids[rng.random(N) < 0.1] = S
+    ids = ids.astype(np.int32)
+    vals = rng.integers(0, 1 << 16, size=(V, N)).astype(np.int32)
+    ref = np.asarray(segment_sum_pallas(jnp.asarray(ids), jnp.asarray(vals),
+                                        S, interpret=True))
+    got = segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), S)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_segment_sum_values_beyond_16_bits(rng):
     # the port has no 2^16 value limit (int32 atomics, no byte split)
     N, S = 4000, 50
