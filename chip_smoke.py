@@ -34,7 +34,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    function, that call's time;
 4. slice, standard path: SlicAvx2(num_components=1600, device="cuda") on
    four 1280x720 frames made from tests/data/golden_ref.npz; labels and
-   clusters equal the plain path (device="cpu") on the same frames;
+   clusters equal the plain path (device="cpu") on the same frames and the
+   JAX package's in tests/data/port_720p_ref.npz;
 5. slice, float path: LSCAvx2 on two frames (labels agree >= 0.999 with the
    plain path, clusters within 1 of it or 1 %), SlicRealDist,
    SlicRealDistL2 and SlicRealDistNoQ on one frame each (labels and
@@ -44,7 +45,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    and LSCAvx2(preemptive=True) on one, against the plain path as above;
 7. batch: BatchedSlic(num_components=1600) on two batches of four frames
    in stack and in map mode (labels and clusters equal across stack, map
-   and four SlicAvx2 models on the card), one stacked batch of two frames
+   and four SlicAvx2 models on the card; the stacked labels equal the JAX
+   package's in tests/data/port_720p_ref.npz), one stacked batch of two frames
    against the plain path, and one stacked batch with preemptive=True and
    one with variant="real_noq" against map mode;
 8. golden: the seven standard and the three real-distance golden cases
@@ -71,6 +73,9 @@ sys.path.insert(0, ROOT)
 
 H720, W720, K720 = 720, 1280, 1600
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
+# the JAX package's labels and clusters on this script's 720p frames and
+# batches (scripts/make_port_fixture_720p.py)
+FIXTURE = os.path.join(ROOT, "tests", "data", "port_720p_ref.npz")
 BATCH = 4
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
@@ -222,6 +227,16 @@ def bound(moved: float, ops: float):
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def require_fixture(what, labels, ref):
+    """Labels equal to the JAX package's (FIXTURE), their agreement
+    logged."""
+    agree = (float((labels == ref).mean()) if labels.shape == ref.shape
+             else 0.0)
+    log("%s: label agreement with the JAX package (%s) %r"
+        % (what, os.path.basename(FIXTURE), agree))
+    require(agree == 1.0, "%s: labels differ from the JAX package's" % what)
 
 
 def max_abs_err(a, b):
@@ -772,6 +787,13 @@ def slice_phase(dev, frames, K: int):
                 % (i, int((labels != ref).sum())))
         require(np.array_equal(yxmrgb, plain.slic_model.to_yxmrgb()),
                 "frame %d: clusters differ from the plain path" % i)
+    fixture = np.load(FIXTURE)
+    for i, (labels, yxmrgb) in enumerate(results):
+        require_fixture("slice frame %d" % (i + 1), labels,
+                        fixture["slice_labels"][i])
+        require(np.array_equal(yxmrgb.astype(np.float32),
+                               fixture["slice_clusters"][i]),
+                "frame %d: clusters differ from the JAX package's" % i)
     return counts, ms, dev_ms, ties, report
 
 
@@ -905,6 +927,10 @@ def batch_phase(dev, batches, K: int):
                 "batch %d: labels shape or range" % t)
     require(states_equal(modes["stack"].state, modes["map"].state),
             "stack and map cluster states differ")
+    fixture = np.load(FIXTURE)
+    for t in range(len(batches)):
+        require_fixture("batch stack %d" % (t + 1), labels["stack"][t],
+                        fixture["batch_labels"][t])
     st = modes["stack"].state
     for f in range(B):
         slic = SlicAvx2(num_components=K, device=dev)

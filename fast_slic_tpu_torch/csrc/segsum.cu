@@ -15,10 +15,10 @@
 // reduced them with byte-split bf16 matmuls, which limited values to 2^16
 // and needed hi-bucket band guards (masked pixels kept the tile's minimum
 // id) and a per-frame VMEM output block.  Hopper has native int32 atomics:
-// the update and segment_sum first sum a tile's pixels on chip (below),
-// framed_segment_sum adds each pixel's values into a zeroed buffer.
-// Integer addition is associative, so the result is exact and independent
-// of the order the atomics land in, and none of those devices is needed.
+// every kernel here first sums a tile's pixels on chip (below), then adds
+// the tile's sums into a zeroed buffer.  Integer addition is associative,
+// so the result is exact and independent of the order the atomics land
+// in, and none of those devices is needed.
 //
 // slic_update builds [count, i, j, L, a, b] in-kernel from the
 // full-resolution assignment and planes, for the rows i % stride == rem; a
@@ -59,19 +59,28 @@
 // segment_sum adds vals [V, N] into out [V, bins] by ids [N] (ids outside
 // [0, bins) drop); the CCA calls it with V = 2 (a plane of ones, the
 // component areas, and one that is zero but at leaders, the orphan
-// targets) over the 921,600 component ids of a 720p frame.  Its bound is
-// its bytes: ids and values read once (11 MB at 720p, 3.3 us at 3.35
-// TB/s; the caller's zero fill of out is a launch of its own).  One global
-// atomic a pixel and plane serialised in L2 instead, since component ids
-// come in runs along rows and a warp's 32 pixels hit one to three
-// addresses.  So it takes the update's design: a block takes a tile of
-// 1024 consecutive pixels, four a lane (16-byte loads when N % 4 == 0 and
-// the pointers are aligned, scalar loads otherwise); a lane sums its runs
-// of equal ids in registers; each run adds to the block's 256-slot table
-// (table_add, kSegVals planes a pass, the keys kept across passes), and
-// each used slot adds its nonzero sums to device memory once a block:
-// ~50-80 components a tile where there were 1024 pixels.  On the H100 that
-// took the call from 37 to 8.0-8.6 us of device time at 720p, 2.5x its
+// targets) over the 921,600 component ids of a 720p frame.
+// framed_segment_sum is the same sum for B stacked frames: ids [B, Nf]
+// frame-local, vals [V, B, Nf], out [B, V, bins], called by the stacked
+// batch's CCA over B frames' component ids.  Both are one kernel,
+// segment_sum_kernel, with the frame as blockIdx.y (segment_sum is B = 1).
+// Its bound is its bytes: ids and values read once (11 MB a 720p frame,
+// 3.3 us at 3.35 TB/s; the caller's zero fill of out is a launch of its
+// own).  One global atomic a pixel and plane serialised in L2 instead,
+// since component ids come in runs along rows and a warp's 32 pixels hit
+// one to three addresses (37 us a 720p frame for segment_sum, 128 us for
+// four stacked frames in framed_segment_sum).  So it takes the update's
+// design: a block takes a tile of 1024 consecutive pixels of one frame,
+// four a lane (16-byte loads when Nf % 4 == 0 and the pointers are
+// aligned, which aligns every frame's and plane's offset too; scalar
+// loads otherwise; a frame's last tile is short, so no tile crosses a
+// frame); a lane sums its runs of equal ids in registers; each run adds
+// to the block's 256-slot table (table_add, kSegVals planes a pass, the
+// keys kept across passes), and each used slot adds its nonzero sums to
+// the frame's rows of out once a block: ~50-80 components a tile where
+// there were 1024 pixels.  Sums are unsigned; framed_segment_sum's out is
+// int32, and both wrap mod 2^32 to the same bits.  On the H100 that took
+// segment_sum from 37 to 8.0-8.6 us of device time at 720p, 2.5x its
 // bytes: 900 blocks run in one wave, and each clears its table, loads its
 // tile, adds its runs and flushes behind two barriers, so what bounds it
 // now is that chain's latency, not the atomics (a lane's runs added
@@ -230,29 +239,36 @@ constexpr int kSegThreads = 256;           // threads a segment-sum block
 constexpr int kSegTile = 4 * kSegThreads;  // pixels a block: four a lane
 constexpr int kSegVals = 2;                // planes a pass (the CCA's V)
 
-// kVec: N % 4 == 0, ids and vals 16-byte aligned, so a lane's four pixels
-// load as one int4 a plane.  Six blocks an SM (at most 42 registers a
-// thread), so a 720p call's 900 blocks run in about one wave
+// kVec: Nf % 4 == 0, ids and vals 16-byte aligned, so a lane's four
+// pixels load as one int4 a plane.  Six blocks an SM (at most 42 registers
+// a thread), so a 720p frame's 900 blocks run in about one wave.
+// ids [B, Nf], vals [V, B, Nf], out [B, V, bins]; frame f is blockIdx.y
 template <bool kVec>
 __global__ void __launch_bounds__(kSegThreads, 6)
 segment_sum_kernel(const int32_t* __restrict__ ids,
                    const int32_t* __restrict__ vals,
-                   unsigned* __restrict__ out, int N, int V, int bins) {
+                   unsigned* __restrict__ out, int B, int Nf, int V,
+                   int bins) {
     __shared__ int keys[kSlots];
     __shared__ unsigned sums[kSegVals][kSlots];
     for (int s = threadIdx.x; s < kSlots; s += kSegThreads) keys[s] = kNone;
 
+    const long long f = blockIdx.y;
+    const long long ps = (long long)B * Nf;  // plane stride of vals
+    ids += f * Nf;
+    vals += f * Nf;
+    out += f * V * bins;
     const long long p = (long long)blockIdx.x * kSegTile + 4 * threadIdx.x;
     int id[4] = {kNone, kNone, kNone, kNone};
     if (kVec) {
-        if (p < N) {  // N % 4 == 0: the four pixels are in the array
+        if (p < Nf) {  // Nf % 4 == 0: the four pixels are in the frame
             const int4 k = __ldg(reinterpret_cast<const int4*>(ids + p));
             id[0] = k.x; id[1] = k.y; id[2] = k.z; id[3] = k.w;
         }
     } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-            if (p + q < N) id[q] = ids[p + q];
+            if (p + q < Nf) id[q] = ids[p + q];
     }
     bool head[4];  // the first pixel of each run of equal ids in the lane
 #pragma unroll
@@ -268,16 +284,16 @@ segment_sum_kernel(const int32_t* __restrict__ ids,
 #pragma unroll
         for (int c = 0; c < kSegVals; ++c) {
             if (c >= nv) break;
-            const int32_t* pv = vals + (long long)(v0 + c) * N + p;
+            const int32_t* pv = vals + (v0 + c) * ps + p;
             if (kVec) {
-                if (p < N) {
+                if (p < Nf) {
                     const int4 y = __ldg(reinterpret_cast<const int4*>(pv));
                     x[c][0] = y.x; x[c][1] = y.y; x[c][2] = y.z; x[c][3] = y.w;
                 }
             } else {
 #pragma unroll
                 for (int q = 0; q < 4; ++q)
-                    if (p + q < N) x[c][q] = pv[q];
+                    if (p + q < Nf) x[c][q] = pv[q];
             }
         }
         for (int s = threadIdx.x; s < kSlots; s += kSegThreads)
@@ -317,23 +333,19 @@ segment_sum_kernel(const int32_t* __restrict__ ids,
     }
 }
 
-// ids [B, Nf] frame-local, vals [V, B, Nf], out [B, V, bins]
-__global__ void framed_segment_sum_kernel(const int32_t* __restrict__ ids,
-                                          const int32_t* __restrict__ vals,
-                                          int32_t* __restrict__ out, int B,
-                                          int Nf, int V, int bins) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    int f = blockIdx.y;
-    if (p >= Nf) return;
-    long long q = (long long)f * Nf + p;
-    int k = ids[q];
-    if (k < 0 || k >= bins) return;
-    long long vs = (long long)B * Nf;
-    int32_t* o = out + (long long)f * V * bins + k;
-    for (int v = 0; v < V; ++v) {
-        int x = vals[v * vs + q];
-        if (x != 0) atomicAdd(o + (long long)v * bins, x);
+int launch_segment_sum(const void* ids, const void* vals, void* out, int B,
+                       int Nf, int V, int bins, void* stream) {
+    if (B > 0 && Nf > 0 && V > 0) {
+        const dim3 blocks((Nf + kSegTile - 1) / kSegTile, B);
+        const bool vec = Nf % 4 == 0 &&
+                         (((uintptr_t)ids | (uintptr_t)vals) & 15) == 0;
+        auto kernel = vec ? &segment_sum_kernel<true>
+                          : &segment_sum_kernel<false>;
+        kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, B, Nf,
+            V, bins);
     }
+    return (int)cudaGetLastError();
 }
 
 template <bool kMasked>
@@ -379,30 +391,13 @@ extern "C" int fstt_slic_update_masked(const void* assignment,
 // out: int32 [V, bins], zeroed by the caller; ids outside [0, bins) drop
 extern "C" int fstt_segment_sum(const void* ids, const void* vals, void* out,
                                 int N, int V, int bins, void* stream) {
-    if (N > 0 && V > 0) {
-        const int blocks = (int)(((long long)N + kSegTile - 1) / kSegTile);
-        const bool vec = N % 4 == 0 &&
-                         (((uintptr_t)ids | (uintptr_t)vals) & 15) == 0;
-        auto kernel = vec ? &segment_sum_kernel<true>
-                          : &segment_sum_kernel<false>;
-        kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, N, V,
-            bins);
-    }
-    return (int)cudaGetLastError();
+    return launch_segment_sum(ids, vals, out, 1, N, V, bins, stream);
 }
 
-// out: int32 [B, V, bins], zeroed by the caller; ids outside [0, bins) drop
+// ids [B, Nf] frame-local, vals [V, B, Nf]; out: int32 [B, V, bins],
+// zeroed by the caller; ids outside [0, bins) drop
 extern "C" int fstt_framed_segment_sum(const void* ids, const void* vals,
                                        void* out, int B, int Nf, int V,
                                        int bins, void* stream) {
-    if (B > 0 && Nf > 0) {
-        dim3 threads(256);
-        dim3 blocks((Nf + threads.x - 1) / threads.x, B);
-        framed_segment_sum_kernel<<<blocks, threads, 0,
-                                    (cudaStream_t)stream>>>(
-            (const int32_t*)ids, (const int32_t*)vals, (int32_t*)out, B, Nf,
-            V, bins);
-    }
-    return (int)cudaGetLastError();
+    return launch_segment_sum(ids, vals, out, B, Nf, V, bins, stream);
 }

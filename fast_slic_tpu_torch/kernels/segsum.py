@@ -21,6 +21,10 @@ a value and pixel had serialised on the few clusters a warp's neighbouring
 pixels share; ids that find the table full still add to device memory
 directly, so random ids are exact too.  What bounds them now is one wave of
 loads and the launch (``scripts/update_variants.py``, ``PERF.md``).
+
+:func:`segment_sum` and :func:`framed_segment_sum` launch one kernel with
+the same design (a block sums 1024 consecutive ids of one frame; the frame
+is a grid row, and :func:`segment_sum` is one frame).
 """
 
 from __future__ import annotations

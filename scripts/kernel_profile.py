@@ -23,8 +23,10 @@ iterations) of the first frame, at stride 3 and at stride 1; the float
 assign of each variant (real, real_l2, real_noq, lsc) on that variant's
 mid-loop state of the first frame and of the four frames stacked (B=4),
 at stride 3 and at stride 1; and the CCA's segment sum on the component
-ids and values of the first frame's raw assignment (every device launch
-listed: the output's zero fill beside the kernel).  The frames go through
+ids and values of the first frame's raw assignment, and the per-frame
+segment sum on the same ids as one frame (B=1) and on the four frames of
+the stacked batch (B=4; every device launch listed: the output's zero
+fill beside the kernel).  The frames go through
 the public API and the kernel calls through the pipeline's stages, so
 ``--root`` may name another checkout of the port (default: the one holding
 this script) and two versions can be profiled in one run on one card.
@@ -42,7 +44,8 @@ import time
 import numpy as np
 
 # substrings of the device kernels reported (kernel names as the profiler
-# gives them)
+# gives them; "segment_sum_kernel" is both segment sums' kernel, and the
+# name of framed_segment_sum's one-atomic-a-pixel kernel before it)
 WATCH = ("slic_update_kernel", "lab_kernel", "lsc_feat_kernel",
          "lookup_kernel", "resolve_orphans_kernel", "fsegsum_kernel",
          "fs_rank", "fs_scan", "fs_scatter", "fs_sum", "RadixSort",
@@ -171,34 +174,51 @@ def profile_assign_float(frames, K, reps=20):
     return out
 
 
-def profile_segment_sum(frame, K, reps=20):
-    """The CCA's segment sum alone: ``reps`` calls on the component ids and
-    values (area ones, leader targets) of the frame's raw assignment, as
-    ``ops.cca.cca_parts`` makes them; every device launch listed."""
+def cca_inputs(frames, K):
+    """The per-frame segment sum's inputs on SlicAvx2's raw assignments of
+    ``frames`` (720p, K=1600): ids [B, n] frame-local component ids and
+    vals [2, B, n] (area ones, leader targets), as
+    ``ops.cca.framed_cca_parts`` makes them."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig
-    from fast_slic_tpu_torch.kernels import cca, segsum
-    from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
-    H, W = frame.shape[:2]
-    n = H * W
+    from fast_slic_tpu_torch.ops.cca import framed_components, segsum_values
+    H, W = frames[0].shape[:2]
     cfg = StaticConfig(H=H, W=W, K=K)
     scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
-    raw = pipeline.iterate_graph(
-        torch.from_numpy(frame).cuda(),
-        cl.initialize_clusters(frame, K).to_torch("cuda"), cfg, scal, 10,
-        3).raw_assignment
-    L = cca.connected_components(raw.contiguous()).reshape(-1)
-    is_leader, rank, _ = leader_ranks(L)
-    comp2 = cca.lookup(L, rank).reshape(H, W)
-    ids = comp2.reshape(-1)
-    vals = segsum_values(comp2, is_leader).contiguous()
+    raw = torch.stack([pipeline.iterate_graph(
+        torch.from_numpy(f).cuda(),
+        cl.initialize_clusters(f, K).to_torch("cuda"), cfg, scal, 10,
+        3).raw_assignment for f in frames])
+    comp, is_leader = framed_components(raw, K)
+    return (comp.reshape(len(frames), H * W),
+            segsum_values(comp, is_leader).contiguous())
 
-    def run():
-        for _ in range(reps):
-            segsum.segment_sum(ids, vals, n)
-    run()
-    return {"segment_sum alone (CCA ids, V=2)": profiled(run, None)}
+
+def profile_segment_sum(frame, batch, K, reps=20):
+    """The CCA's segment sums alone, every device launch listed (the
+    output's zero fill beside the kernel): ``reps`` calls of segment_sum
+    on the component ids and values of ``frame``'s raw assignment, and of
+    framed_segment_sum on the same as one frame (B=1) and on the four
+    frames of ``batch`` (B=4, the stacked batch's call)."""
+    from fast_slic_tpu_torch.kernels import segsum
+    out = {}
+    ids1, vals1 = cca_inputs([frame], K)
+    n = ids1.shape[1]
+    calls = {"segment_sum alone (CCA ids, V=2)":
+             lambda: segsum.segment_sum(ids1[0], vals1[:, 0], n),
+             "framed_segment_sum alone B=1 (CCA ids, V=2)":
+             lambda: segsum.framed_segment_sum(ids1, vals1, n)}
+    ids4, vals4 = cca_inputs(batch, K)
+    calls["framed_segment_sum alone B=%d (CCA ids, V=2)" % len(batch)] = (
+        lambda: segsum.framed_segment_sum(ids4, vals4, n))
+    for name, call in calls.items():
+        def run(call=call):
+            for _ in range(reps):
+                call()
+        run()
+        out[name] = profiled(run, None)
+    return out
 
 
 def main() -> int:
@@ -231,7 +251,7 @@ def main() -> int:
         out[name] = profile_frame(slic, frames[0], frames[1])
     out.update(profile_assign(frames[0], K720))
     out.update(profile_assign_float(frames, K720))
-    out.update(profile_segment_sum(frames[0], K720))
+    out.update(profile_segment_sum(frames[0], more[:BATCH], K720))
     for name, kw in (("", {}), (" preemptive", {"preemptive": True}),
                      (" real_noq", {"variant": "real_noq"})):
         bs = BatchedSlic(num_components=K720, batch_mode="stack",

@@ -1,4 +1,4 @@
-// Variants of two kernels of the library, beside which their designs were
+// Variants of kernels of the library, beside which their designs were
 // chosen, for scripts/kernel_variants.py.  The library's sources are
 // included, so each variant shares everything but the part it changes.
 //
@@ -23,10 +23,11 @@
 // G=4, R=1, prefetch (6); G=1, R=4, prefetch (7, the third); G=1, R=2,
 // prefetch (8); G=1, R=2 (9); G=1, R=4 (10, as the library).
 //
-// segsum_variant: the segment sum as one global atomic a pixel and nonzero
-// value, a thread a pixel (0: the design before the shared table), or a
-// lane's runs of four pixels summed in registers, each run adding to
-// device memory (1: the runs without the table).
+// segsum_variant: the segment sum, with a frame axis, as one global atomic
+// a pixel and nonzero value, a thread a pixel (0: the design before the
+// shared table, the library's framed_segment_sum kernel until it shared
+// segment_sum's), or a lane's runs of four pixels summed in registers, each
+// run adding to device memory (1: the runs without the table).
 
 #include "../fast_slic_tpu_torch/csrc/cca.cu"
 #include "../fast_slic_tpu_torch/csrc/assign.cu"
@@ -302,36 +303,48 @@ int run_staged(const void* planes, const void* table, const void* cand,
     return (int)cudaGetLastError();
 }
 
+// ids [B, Nf] frame-local, vals [V, B, Nf], out [B, V, bins]: a thread a
+// pixel, frame f in blockIdx.y (the library's framed_segment_sum before
+// the shared table; at B = 1 the segment sum's design before it too)
 __global__ void segsum_atomics(const int32_t* __restrict__ ids,
                                const int32_t* __restrict__ vals,
-                               int32_t* __restrict__ out, int N, int V,
-                               int bins) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= N) return;
-    const int k = ids[p];
+                               int32_t* __restrict__ out, int B, int Nf,
+                               int V, int bins) {
+    int p = blockIdx.x * blockDim.x + threadIdx.x;
+    int f = blockIdx.y;
+    if (p >= Nf) return;
+    long long q = (long long)f * Nf + p;
+    int k = ids[q];
     if (k < 0 || k >= bins) return;
+    long long vs = (long long)B * Nf;
+    int32_t* o = out + (long long)f * V * bins + k;
     for (int v = 0; v < V; ++v) {
-        const int x = vals[(long long)v * N + p];
-        if (x != 0) atomicAdd(out + (long long)v * bins + k, x);
+        int x = vals[v * vs + q];
+        if (x != 0) atomicAdd(o + (long long)v * bins, x);
     }
 }
 
-// a lane's four pixels (scalar loads), its runs summed in registers
+// a lane's four pixels (scalar loads), its runs summed in registers, the
+// same layout
 __global__ void segsum_runs(const int32_t* __restrict__ ids,
                             const int32_t* __restrict__ vals,
-                            unsigned* __restrict__ out, int N, int V,
+                            unsigned* __restrict__ out, int B, int Nf, int V,
                             int bins) {
+    const long long f = blockIdx.y;
     const long long p = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
-    if (p >= N) return;
+    if (p >= Nf) return;
+    ids += f * Nf;
+    vals += f * Nf;
+    out += f * V * bins;
     int id[4];
     for (int q = 0; q < 4; ++q) {
-        id[q] = p + q < N ? ids[p + q] : -1;
+        id[q] = p + q < Nf ? ids[p + q] : -1;
         if (id[q] < 0 || id[q] >= bins) id[q] = -1;
     }
     for (int v = 0; v < V; ++v) {
         unsigned x[4];
         for (int q = 0; q < 4; ++q)
-            x[q] = p + q < N ? vals[(long long)v * N + p + q] : 0;
+            x[q] = p + q < Nf ? vals[v * B * (long long)Nf + p + q] : 0;
         for (int q = 2; q >= 0; --q) x[q] += id[q] == id[q + 1] ? x[q + 1] : 0;
         for (int q = 0; q < 4; ++q)
             if (id[q] >= 0 && (q == 0 || id[q] != id[q - 1]) && x[q])
@@ -414,18 +427,19 @@ extern "C" int assign_float_variant(
 #undef FSTT_VARIANT
 }
 
-// v 0: a global atomic a pixel and value, 1: a lane's runs to device memory
+// v 0: a global atomic a pixel and value, 1: a lane's runs to device
+// memory; ids [B, Nf], vals [V, B, Nf], out [B, V, bins] ([V, bins] at B=1)
 extern "C" int segsum_variant(int v, const void* ids, const void* vals,
-                              void* out, int N, int V, int bins,
+                              void* out, int B, int Nf, int V, int bins,
                               void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     if (v == 0)
-        segsum_atomics<<<(N + 255) / 256, 256, 0, s>>>(
-            (const int32_t*)ids, (const int32_t*)vals, (int32_t*)out, N, V,
-            bins);
+        segsum_atomics<<<dim3((Nf + 255) / 256, B), 256, 0, s>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (int32_t*)out, B, Nf,
+            V, bins);
     else
-        segsum_runs<<<(N + 1023) / 1024, 256, 0, s>>>(
-            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, N, V,
-            bins);
+        segsum_runs<<<dim3((Nf + 1023) / 1024, B), 256, 0, s>>>(
+            (const int32_t*)ids, (const int32_t*)vals, (unsigned*)out, B, Nf,
+            V, bins);
     return (int)cudaGetLastError();
 }

@@ -39,10 +39,12 @@ torch.profiler run.  Calls:
   that each spans the cell row: the first design), ``g2r4_no_prefetch``
   and ``g1r2_no_prefetch``;
 - segment sum, on the CCA's component ids and values of the first frame's
-  raw assignment: ``library`` (a lane's runs, then the block's shared
-  table, one atomic a slot and plane); ``atomics`` (one global atomic a
-  pixel and nonzero value); ``runs_only`` (a lane's runs, each to device
-  memory).
+  raw assignment, and the per-frame segment sum on the four frames'
+  (B=4): ``library`` (a lane's runs, then the block's shared table, one
+  atomic a slot and plane; one kernel for both, the frame a grid row);
+  ``atomics`` (one global atomic a pixel and nonzero value: the per-frame
+  sum's kernel before this design); ``runs_only`` (a lane's runs, each to
+  device memory).
 
 Prints the card's name and power limit, then one JSON line of device
 microseconds a call (all of a call's launches) and a launch by kernel.
@@ -80,7 +82,7 @@ def build():
     lib.cc_variant.argtypes = [I, P, P, I, I, P]
     lib.assign_variant.argtypes = [I, P, P, P, P, P, F] + [I] * 11 + [P]
     lib.assign_float_variant.argtypes = [I] + [P] * 7 + [F] + [I] * 12 + [P]
-    lib.segsum_variant.argtypes = [I, P, P, P, I, I, I, P]
+    lib.segsum_variant.argtypes = [I, P, P, P, I, I, I, I, P]
     fns = (lib.cc_variant, lib.assign_variant, lib.assign_float_variant,
            lib.segsum_variant)
     for fn in fns:
@@ -222,38 +224,52 @@ def float_cases(float_variant, result):
                             % (variant, B, stride)] = in_turns(calls)
 
 
-def segsum_cases(segsum_variant, raw, result):
-    """The CCA's segment sum and its variants on one frame's component ids,
-    held against the plain version, then profiled in turns (each call with
-    its zero fill of the output)."""
+def segsum_cases(segsum_variant, raws, result):
+    """The CCA's segment sums and their variants on the component ids of
+    the first frame (segment_sum) and of the four frames stacked
+    (framed_segment_sum, the stacked batch's call), held against the plain
+    versions, then profiled in turns (each call with its zero fill of the
+    output)."""
     import torch
-    from fast_slic_tpu_torch.kernels import _lib, cca, segsum
-    from fast_slic_tpu_torch.ops.cca import leader_ranks, segsum_values
+    from chip_smoke import K720
+    from fast_slic_tpu_torch.kernels import _lib, segsum
+    from fast_slic_tpu_torch.ops.cca import framed_components, segsum_values
 
-    L = cca.connected_components(raw.contiguous()).reshape(-1)
-    is_leader, rank, _ = leader_ranks(L)
-    comp2 = cca.lookup(L, rank).reshape(raw.shape)
-    ids = comp2.reshape(-1)
-    vals = segsum_values(comp2, is_leader).contiguous()
-    V, n = vals.shape
-    ref = segsum.segment_sum_plain(ids, vals, n)
+    comp, is_leader = framed_components(raws, K720)
+    B = comp.shape[0]
+    ids4 = comp.reshape(B, -1)
+    vals4 = segsum_values(comp, is_leader).contiguous()
+    V, _, n = vals4.shape
+    ids1, vals1 = ids4[0], vals4[:, 0].contiguous()
+    cases = {
+        "segment_sum (CCA ids, V=2)": (
+            1, ids1, vals1, lambda: segsum.segment_sum(ids1, vals1, n),
+            segsum.segment_sum_plain(ids1, vals1, n)),
+        "framed_segment_sum B=%d (CCA ids, V=2)" % B: (
+            B, ids4, vals4,
+            lambda: segsum.framed_segment_sum(ids4, vals4, n),
+            segsum.framed_segment_sum_plain(ids4, vals4, n))}
+    for name, (nb, ids, vals, library, ref) in cases.items():
+        bins = n + 1 if nb == 1 else n
 
-    def run(v):
-        out = torch.zeros((V, n + 1), dtype=torch.int32, device=ids.device)
-        err = segsum_variant(v, ids.data_ptr(), vals.data_ptr(),
-                             out.data_ptr(), n, V, n + 1, _lib.stream())
-        if err:
-            raise RuntimeError("segsum_variant %d: cudaError %d" % (v, err))
-        return out
+        def run(v, nb=nb, ids=ids, vals=vals, bins=bins, shape=ref.shape):
+            out = torch.zeros(shape, dtype=torch.int32, device=ids.device)
+            err = segsum_variant(v, ids.data_ptr(), vals.data_ptr(),
+                                 out.data_ptr(), nb, n, V, bins,
+                                 _lib.stream())
+            if err:
+                raise RuntimeError("segsum_variant %d: cudaError %d"
+                                   % (v, err))
+            return out
 
-    calls = {"library": lambda: segsum.segment_sum(ids, vals, n)}
-    for vname, v in SEGSUM_VARIANTS.items():
-        calls[vname] = lambda v=v: run(v)
-    for vname, call in calls.items():
-        if not torch.equal(call(), ref):
-            raise RuntimeError("segment sum %s differs from the plain "
-                               "version" % vname)
-    result["cases"]["segment_sum (CCA ids, V=2)"] = in_turns(calls)
+        calls = {"library": library}
+        for vname, v in SEGSUM_VARIANTS.items():
+            calls[vname] = lambda v=v, run=run: run(v)
+        for vname, call in calls.items():
+            if not torch.equal(call(), ref):
+                raise RuntimeError("%s %s differs from the plain version"
+                                   % (name, vname))
+        result["cases"][name] = in_turns(calls)
 
 
 def main() -> int:
@@ -336,7 +352,7 @@ def main() -> int:
             result["cases"]["assign B=%d stride %d" % (B, stride)] = (
                 in_turns(calls))
     float_cases(float_variant, result)
-    segsum_cases(segsum_variant, raws[0], result)
+    segsum_cases(segsum_variant, raws, result)
     print(json.dumps(result))
     return 0
 

@@ -22,8 +22,9 @@ empty and full masks), the segment sum (the CCA's ids and values of a 720p
 superpixel map, runs, one id, random ids over more bins than its table,
 ids outside the bins, which drop, sums that wrap, 1, 2, 3 and 5 planes, a
 ragged length and a misaligned view), the per-frame
-segment sum and the frame-axis launches of assign, float assign and
-update.  The f32 segment sum must equal its plain version on the CPU,
+segment sum (each of those layouts in one and in three frames, with 1, 2
+and 3 planes, and the CCA call of a stacked batch of four 720p frames)
+and the frame-axis launches of assign, float assign and update.  The f32 segment sum must equal its plain version on the CPU,
 whose order of addition it keeps, and give the same sums on every run
 (on the card, index_add_ adds with float atomics in a changing order),
 also with a preemptive-like mask at 720p, a single bin, empty bins and
@@ -34,6 +35,7 @@ frames (``BatchedSlic`` in stack and map mode).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -53,8 +55,8 @@ from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
 pytestmark = pytest.mark.gpu
 
-DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                    "golden_ref.npz")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
 
 
 @pytest.fixture
@@ -706,12 +708,62 @@ def test_segment_sum_kernel_cases(cuda, rng, case, V):
                                  vals[:, keep].contiguous(), S))
 
 
-def test_framed_segment_sum_kernel_matches_plain(cuda, rng):
-    B, Nf, V, MF = 4, 30011, 2, 5000
-    ids = torch.from_numpy(np.sort(rng.integers(0, MF + 3, size=(B, Nf)),
-                                   1).astype(np.int32)).to(cuda)
-    vals = torch.from_numpy(rng.integers(0, 1 << 20, size=(V, B, Nf)).astype(
-        np.int32)).to(cuda)
+def _stacked_720p_cca(dev):
+    """The stacked batch's CCA call on the four frames of chip_smoke.py's
+    first batch: ids [4, n] frame-local component ids of SlicAvx2's raw
+    assignments at 720p, K=1600, and vals [2, 4, n] (area ones, leader
+    targets), as ops.cca.framed_cca_parts makes them."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import BATCH, H720, K720, W720, make_frames
+    from fast_slic_tpu_torch.ops.cca import framed_components
+    cfg = StaticConfig(H=H720, W=W720, K=K720)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    raw = torch.stack([pipeline.iterate_graph(
+        torch.from_numpy(f).to(dev),
+        tcl.initialize_clusters(f, K720).to_torch(dev), cfg, scal, 10,
+        3).raw_assignment for f in make_frames(2 * BATCH, H720, W720,
+                                               seed=1)[:BATCH]])
+    comp, is_leader = framed_components(raw, K720)
+    vals = segsum_values(comp, is_leader).contiguous()
+    return comp.reshape(BATCH, -1), vals
+
+
+# the frame axis of the segment sum's kernel: each SEGSUM_CASES layout in
+# every frame, one and three frames; "sorted" rising ids over four frames,
+# some past the bins; the CCA call of a stacked batch of four 720p frames
+FRAMED_CASES = ([("sorted", 2, 4)]
+                + [(c, V, B) for c in SEGSUM_CASES for V in (1, 2, 3)
+                   for B in (1, 3)]
+                + [("cca_720p", 2, 4)])
+
+
+@pytest.mark.parametrize("case,V,B", FRAMED_CASES)
+def test_framed_segment_sum_kernel_matches_plain(cuda, rng, case, V, B):
+    if case == "cca_720p":
+        ids, vals = _stacked_720p_cca(cuda)
+        MF = ids.shape[1]
+    else:
+        Nf, MF = (100003 if case == "ragged" else 100000), 30000
+        if case == "sorted":
+            Nf, MF = 30011, 5000
+            ids = np.sort(rng.integers(0, MF + 3, size=(B, Nf)), 1)
+        elif case == "one_id":
+            ids = np.full((B, Nf), 7)
+        elif case == "random":
+            ids = rng.integers(0, MF, (B, Nf))
+        elif case == "outside":
+            ids = rng.integers(-50, MF + 50, (B, Nf))
+        else:
+            ids = np.stack([_runs(rng, Nf) for _ in range(B)])
+        vals = rng.integers(0, 1 << 20, size=(V, B, Nf))
+        if case == "wrap":
+            vals = rng.integers(-(1 << 31), 1 << 31, size=(V, B, Nf))
+        ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+        vals = torch.from_numpy(vals.astype(np.int32)).to(cuda)
+        if case == "offset":
+            ids, vals = _offset(ids), _offset(vals)
+            assert ids.data_ptr() % 16 == 4 and vals.data_ptr() % 16 == 4
+    # the plain version drops ids outside [0, MF) itself, as the kernel does
     _eq(segsum.framed_segment_sum(ids, vals, MF),
         segsum.framed_segment_sum_plain(ids, vals, MF))
 

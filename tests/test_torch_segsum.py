@@ -2,8 +2,8 @@
 
 The port's wrappers run their plain versions on the CPU; they must equal
 ``fast_slic_tpu.pipeline.update_accumulate`` (arch xla) and the Pallas
-kernels ``slic_update_padded_pallas`` and ``segment_sum_pallas`` in
-interpret mode.  Exact.
+kernels ``slic_update_padded_pallas``, ``segment_sum_pallas`` and
+``framed_segment_sum_pallas`` in interpret mode.  Exact.
 """
 
 import numpy as np
@@ -14,10 +14,12 @@ import jax.numpy as jnp
 
 from fast_slic_tpu import pipeline as jpipe
 from fast_slic_tpu.config import StaticConfig as JaxConfig
-from fast_slic_tpu.pallas.segsum_tpu import (segment_sum_pallas,
+from fast_slic_tpu.pallas.segsum_tpu import (framed_segment_sum_pallas,
+                                             segment_sum_pallas,
                                              slic_update_padded_pallas)
 from fast_slic_tpu_torch.config import UNASSIGNED
-from fast_slic_tpu_torch.kernels.segsum import segment_sum, slic_update
+from fast_slic_tpu_torch.kernels.segsum import (framed_segment_sum,
+                                                segment_sum, slic_update)
 
 H, W, K = 70, 100, 24
 
@@ -131,4 +133,43 @@ def test_segment_sum_values_beyond_16_bits(rng):
     for v in range(2):
         np.add.at(ref[v], ids, vals[v])
     got = segment_sum(torch.from_numpy(ids), torch.from_numpy(vals), S)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+# The per-frame segment sum (the stacked batch's CCA call) on the layout
+# its card kernel sums on chip: each frame's ids in runs of 1-47 equal ids,
+# and a tenth of them on the frame's last bin (MF - 1); one and three
+# frames.  Values stay below 2^16, the Pallas kernel's own limit.
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("layout", ["runs", "last_bin"])
+def test_framed_segment_sum_runs_match_pallas_interpret(rng, layout, B):
+    Nf, V, MF = 5000, 2, 400
+    ids = np.stack([np.minimum(np.repeat(np.arange(Nf),
+                                         rng.integers(1, 48, Nf))[:Nf],
+                               MF - 1) for _ in range(B)])
+    if layout == "last_bin":
+        ids[rng.random((B, Nf)) < 0.1] = MF - 1
+    ids = ids.astype(np.int32)
+    vals = rng.integers(0, 1 << 16, size=(V, B, Nf)).astype(np.int32)
+    ref = np.asarray(framed_segment_sum_pallas(
+        jnp.asarray(ids), jnp.asarray(vals), MF, interpret=True))
+    got = framed_segment_sum(torch.from_numpy(ids), torch.from_numpy(vals),
+                             MF)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, V, MF)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_framed_segment_sum_values_beyond_16_bits(rng, B):
+    # no 2^16 value limit in the port; ids outside [0, MF) drop
+    Nf, MF = 4000, 50
+    ids = rng.integers(-3, MF + 3, size=(B, Nf)).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, size=(2, B, Nf)).astype(np.int32)
+    ref = np.zeros((B, 2, MF), np.int64)
+    for f in range(B):
+        keep = (ids[f] >= 0) & (ids[f] < MF)
+        for v in range(2):
+            np.add.at(ref[f, v], ids[f][keep], vals[v, f][keep])
+    got = framed_segment_sum(torch.from_numpy(ids), torch.from_numpy(vals),
+                             MF)
     np.testing.assert_array_equal(got.numpy(), ref)
