@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check
 them: the standard main path, the float-distance path (the real variants
-and LSC), the preemptive grid and batched frames (BatchedSlic).
+and LSC), the preemptive grid, batched frames (BatchedSlic) and the CRF
+refinement (the graph utilities and SimpleCRF).
 
     python3 chip_smoke.py            # from the repository root, on a GPU
     python3 chip_smoke.py --profile  # also: torch.profiler over one frame
                                      # of the standard, the LSC and the
-                                     # preemptive path and one stacked
-                                     # batch of four frames
+                                     # preemptive path, one stacked
+                                     # batch of four frames, one frame's
+                                     # CRF graphs and one CRF cycle
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -24,13 +26,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the LSC float assign on the four frames' LSC states stacked), the
    masked update with that pixel mask at B=4 and B=1, and the components
    and the per-frame segment sum on the four frames' stacked CCA map; the
-   f32 segment sum again under frame 0's preemptive mask); bit-exact (the
-   f32 segment sum against its plain version on the CPU, whose order of
-   addition it keeps; on the card index_add_ adds with float atomics), with
-   times, the host time of a lookup, chase and f32 segment-sum call, each
-   kernel's
-   bound (the bytes it must move over 3.35 TB/s or its operations over
-   67 TFLOP/s, the larger) and, where one PyTorch call computes the same
+   f32 segment sum again under frame 0's preemptive mask; the KNN on the
+   clusters of the JAX package's first 720p frame at m = 4, 1 and 8);
+   bit-exact (the f32 segment sum against its plain version on the CPU,
+   whose order of addition it keeps; on the card index_add_ adds with
+   float atomics; the KNN against its host loop), with times, the host
+   time of a lookup, chase and f32 segment-sum call, each kernel's bound
+   (the bytes it must move over 3.35 TB/s or its operations over 67
+   TFLOP/s, the larger) and, where one PyTorch call computes the same
    function, that call's time;
 4. slice, standard path: SlicAvx2(num_components=1600, device="cuda") on
    four 1280x720 frames made from tests/data/golden_ref.npz; labels and
@@ -49,7 +52,17 @@ Phases (any failure exits non-zero; no phase's error is caught):
    package's in tests/data/port_720p_ref.npz), one stacked batch of two frames
    against the plain path, and one stacked batch with preemptive=True and
    one with variant="real_noq" against map mode;
-8. golden: the seven standard and the three real-distance golden cases
+8. crf: SlicAvx2(num_components=1600) on the four frames, each frame's
+   get_connectivity, get_knn_connectivity(labels, 4), the density of a
+   seeded mask and its broadcast, and the frame pushed by push_slic_frame
+   into a SimpleCRF(21, 1600) with the adjacency graph and into one with
+   knn=4 (class probabilities as bench.py's config 5), then initialize();
+   inference(5) on each; the graphs and densities equal the plain path's
+   and the JAX package's (tests/data/port_crf_ref.npz), the posteriors are
+   within rtol 2e-4, atol 1e-6 of the JAX package's with >= 0.999 of the
+   argmax classes equal; ms of each call a frame and of a cycle (CUDA
+   events and the host clock);
+9. golden: the seven standard and the three real-distance golden cases
    agree 1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -77,6 +90,12 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
 # batches (scripts/make_port_fixture_720p.py)
 FIXTURE = os.path.join(ROOT, "tests", "data", "port_720p_ref.npz")
 BATCH = 4
+# the crf phase: SimpleCRF(CRF_C, K720) over the four slice frames, with the
+# adjacency graph and with knn=CRF_KNN, then initialize(); inference(CRF_ITERS)
+CRF_C, CRF_KNN, CRF_ITERS = 21, 4, 5
+# the JAX package's graphs, densities and posteriors on the slice frames
+# (scripts/make_port_fixture_crf.py)
+CRF_FIXTURE = os.path.join(ROOT, "tests", "data", "port_crf_ref.npz")
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
 # outside the tensor cores (the integer ops of these kernels are counted at the
@@ -114,6 +133,8 @@ PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
 BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
               "connected_components", "lookup", "resolve_orphans")
+# the CRF path: the standard path's kernels, then the graph utilities
+CRF_PATH = STANDARD_PATH + ("knn",)
 # device kernels of the redesigned calls and the once-a-frame kernels,
 # printed in every profile
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
@@ -125,7 +146,8 @@ PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
     + [(k, "float") for k in ("lsc_feat", "assign_float", "fsegsum")]
-    + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch")])
+    + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch"),
+       ("knn", "crf")])
 
 
 class SmokeFailure(RuntimeError):
@@ -176,6 +198,21 @@ def make_frames(n: int, H: int, W: int, seed: int = 0, shift: int = 8):
         noisy = crop + rng.normal(0.0, 2.0, size=crop.shape)
         frames.append(np.clip(np.rint(noisy), 0, 255).astype(np.uint8))
     return frames
+
+
+def crf_mask(t: int, H: int, W: int) -> np.ndarray:
+    """The crf phase's seeded u8 mask of frame t: 16x16 blocks of random
+    values."""
+    rng = np.random.default_rng(100 + t)
+    blocks = rng.integers(0, 256, size=(-(-H // 16), -(-W // 16)),
+                          dtype=np.uint8)
+    return np.kron(blocks, np.ones((16, 16), np.uint8))[:H, :W]
+
+
+def crf_proba(t: int, C: int, N: int) -> np.ndarray:
+    """Frame t's class probabilities [C, N] (bench.py's config 5)."""
+    return np.ascontiguousarray(np.random.default_rng(t).dirichlet(
+        np.ones(C), N).T.astype(np.float32))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -291,6 +328,9 @@ def cand_visits(cand, H: int, W: int, S: int, stride: int, rem: int) -> int:
 # arithmetic of the kernel's inner statement, not its index math)
 OPS_PER_VISIT = {"standard": 12, "real": 14, "real_l2": 16, "real_noq": 22,
                  "lsc": 30}
+# the KNN's work a candidate: two subtractions, two absolutes, an add, the
+# conversion and the compare with the heap's top
+OPS_PER_KNN_VISIT = 7
 
 
 class Results:
@@ -865,18 +905,8 @@ def timed_batch(bs, frames):
     """One BatchedSlic.iterate: labels on the host, CUDA-event ms and
     host-clock ms (both end when the device has finished), and the number
     of frames that took the tie escalation."""
-    import torch
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    labels = bs.iterate(frames)
-    stop.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    return (labels.cpu().numpy(), start.elapsed_time(stop), host_ms,
-            int(bs.last_flags.sum()))
+    labels, ev_ms, host_ms = timed_call(lambda: bs.iterate(frames))
+    return labels.cpu().numpy(), ev_ms, host_ms, int(bs.last_flags.sum())
 
 
 def states_equal(a, b):
@@ -963,6 +993,180 @@ def batch_phase(dev, batches, K: int):
     return counts
 
 
+def knn_visits(ys, xs, H: int, W: int) -> int:
+    """Candidates the KNN walks for these centres: the clusters in each
+    query's half-open 6x6-cell window, itself excluded."""
+    from fast_slic_tpu_torch.kernels.knn import grid
+    K = ys.shape[0]
+    S, nh, nw = grid(H, W, K)
+    cy, cx = ys.astype(np.int32) // S, xs.astype(np.int32) // S
+    pop = np.zeros((nh, nw), np.int64)
+    np.add.at(pop, (np.clip(cy, 0, nh - 1), np.clip(cx, 0, nw - 1)), 1)
+    csum = np.zeros((nh + 1, nw + 1), np.int64)
+    csum[1:, 1:] = pop.cumsum(0).cumsum(1)
+    y0, y1 = np.maximum(cy - 3, 0), np.minimum(cy + 3, nh)
+    x0, x1 = np.maximum(cx - 3, 0), np.minimum(cx + 3, nw)
+    win = csum[y1, x1] - csum[y0, x1] - csum[y1, x0] + csum[y0, x0]
+    return int(win.sum()) - K
+
+
+def knn_kernel_phase(dev, res: Results):
+    """The KNN kernel against its plain version (the host loop) on the
+    clusters of the JAX package's first 720p frame (FIXTURE), at the crf
+    phase's m and at 1 and 8."""
+    import torch
+    from fast_slic_tpu_torch.kernels import knn
+
+    yxm = np.load(FIXTURE)["slice_clusters"][0]
+    ys = torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).to(dev)
+    xs = torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).to(dev)
+    K = ys.shape[0]
+    for m in (CRF_KNN, 1, 8):
+        got = knn.knn(ys, xs, H720, W720, m)
+        want = knn.knn_plain(ys.cpu(), xs.cpu(), H720, W720, m)
+        res.check("knn", max(max_abs_err(got[0].cpu(), want[0]),
+                             max_abs_err(got[1].cpu(), want[1])))
+        log("kernel phase: knn m=%d: %d neighbours for %d clusters"
+            % (m, int(want[1].sum()), K))
+    visits = knn_visits(yxm[:, 0], yxm[:, 1], H720, W720)
+    log("kernel phase: knn walks %d candidates at 720p K=%d" % (visits, K))
+    res.time("knn", lambda: knn.knn(ys, xs, H720, W720, CRF_KNN),
+             lambda: knn.knn_plain(ys.cpu(), xs.cpu(), H720, W720, CRF_KNN),
+             nbytes(ys, xs) + 4 * K * (CRF_KNN + 1),
+             OPS_PER_KNN_VISIT * visits, reps=50, plain_reps=2)
+
+
+def timed_call(fn):
+    """fn() with its CUDA-event ms and host-clock ms; both end when the
+    device has finished."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
+
+
+def crf_phase(dev, frames, K: int):
+    """The CRF path: SlicAvx2 over the frames on ``dev``, each frame's
+    adjacency and KNN graphs, the density of a seeded mask and its
+    broadcast, and the frame pushed into two SimpleCRF(CRF_C, K) (the
+    adjacency graph; knn=CRF_KNN), then initialize(); inference(CRF_ITERS)
+    on each.  The graphs and densities equal the plain path's and the JAX
+    package's (CRF_FIXTURE); the posteriors are within rtol 2e-4, atol
+    1e-6 of the JAX package's, with >= 0.999 of the argmax classes equal.
+    Returns the launch counts of the path."""
+    import torch
+    from fast_slic_tpu_torch import SimpleCRF, SlicAvx2
+    from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
+    from fast_slic_tpu_torch.ops import graph
+
+    H, W = frames[0].shape[:2]
+    times = {k: ([], []) for k in ("get_connectivity", "get_knn_connectivity",
+                                   "push_slic_frame adjacency",
+                                   "push_slic_frame knn")}
+
+    def timed(what, fn):
+        out, ev_ms, host_ms = timed_call(fn)
+        times[what][0].append(ev_ms)
+        times[what][1].append(host_ms)
+        return out
+
+    reset_launches()
+    slic = SlicAvx2(num_components=K, device=dev)
+    crfs = {"adjacency": SimpleCRF(CRF_C, K, device=dev),
+            "knn": SimpleCRF(CRF_C, K, device=dev)}
+    frame_out = []
+    for t, f in enumerate(frames):
+        labels = slic.iterate(f)
+        model = slic.slic_model
+        adj = timed("get_connectivity", lambda: model.get_connectivity(labels))
+        kn = timed("get_knn_connectivity",
+                   lambda: model.get_knn_connectivity(labels, CRF_KNN))
+        dens = model.get_mask_density(crf_mask(t, H, W), labels)
+        back = model.broadcast_density_to_mask(dens, labels)
+        for name, crf in crfs.items():
+            fr = timed("push_slic_frame " + name, lambda: crf.push_slic_frame(
+                slic, knn=CRF_KNN if name == "knn" else None))
+            fr.set_proba(crf_proba(t, CRF_C, K))
+        frame_out.append((labels, model._clusters.copy(), adj.matrix(),
+                          kn.matrix(), dens, back))
+    cycles = {}
+    for name, crf in crfs.items():
+        # the first cycle stages the graph and unaries; the second is steady
+        cycles[name] = [timed_call(lambda: (crf.initialize(),
+                                            crf.inference(CRF_ITERS)))[1:]
+                        for _ in range(2)]
+    stacks = {name: crf.inferred_stack() for name, crf in crfs.items()}
+    counts = launch_counts()
+
+    for what, (ev, host) in times.items():
+        log("crf: %s ms a frame, CUDA events: %s; host clock: %s"
+            % (what, ", ".join("%.3f" % x for x in ev),
+               ", ".join("%.3f" % x for x in host)))
+    for name, cyc in cycles.items():
+        log("crf: %s initialize(); inference(%d) at T=%d, C=%d, N=%d: "
+            "first %.3f ms (CUDA events), %.3f ms (host clock); steady "
+            "%.3f ms, %.3f ms" % (name, CRF_ITERS, len(frames), CRF_C, K,
+                                  cyc[0][0], cyc[0][1], cyc[1][0],
+                                  cyc[1][1]))
+
+    fixture = np.load(FIXTURE)
+    ref = np.load(CRF_FIXTURE)
+    for t, (labels, st, adj, kn, dens, back) in enumerate(frame_out):
+        require_fixture("crf frame %d" % (t + 1), labels,
+                        fixture["slice_labels"][t])
+        for what, (nbr, lens), plain, key in (
+                ("adjacency", adj, graph.adjacency_matrix(labels, K, "cpu"),
+                 "adj"),
+                ("knn", kn, graph.knn(st, CRF_KNN, (H, W), "cpu"), "knn")):
+            require(np.array_equal(nbr, plain[0])
+                    and np.array_equal(lens, plain[1]),
+                    "crf frame %d: %s differs from the plain path"
+                    % (t, what))
+            require(np.array_equal(lens, ref[key + "_lens"][t])
+                    and np.array_equal(nbr,
+                                       ref[key + "_nbr"][t][:, :nbr.shape[1]])
+                    and (ref[key + "_nbr"][t][:, nbr.shape[1]:] == -1).all(),
+                    "crf frame %d: %s differs from the JAX package's"
+                    % (t, what))
+        mask = crf_mask(t, H, W)
+        require(np.array_equal(dens, graph.mask_density(mask, labels, st,
+                                                         "cpu"))
+                and np.array_equal(back, graph.density_to_mask(dens, labels,
+                                                               K, "cpu")),
+                "crf frame %d: densities differ from the plain path" % t)
+        require(np.array_equal(dens, ref["density"][t])
+                and np.array_equal(back, ref["density_mask"][t]),
+                "crf frame %d: densities differ from the JAX package's" % t)
+        log("crf frame %d: adjacency (%d edges, longest list %d), knn (%d "
+            "neighbours) and densities equal the plain path and the JAX "
+            "package" % (t + 1, int(adj[1].sum()) // 2, int(adj[1].max()),
+                         int(kn[1].sum())))
+    for name, stack in stacks.items():
+        require(isinstance(stack, torch.Tensor)
+                and stack.device.type == torch.device(dev).type,
+                "crf %s: the posteriors left the device" % name)
+        got = stack.cpu().numpy()
+        want = ref["q_adj" if name == "adjacency" else "q_knn"]
+        require(got.shape == want.shape and np.isfinite(got).all(),
+                "crf %s: posteriors %s" % (name, got.shape))
+        # the share of the tolerance used: <= 1 is within rtol 2e-4, atol 1e-6
+        share = float((np.abs(got - want) / (1e-6 + 2e-4 * np.abs(want))
+                       ).max())
+        agree = float((got.argmax(1) == want.argmax(1)).mean())
+        log("crf %s: posteriors vs the JAX package: max abs err %r, share "
+            "of the tolerance %r, argmax agreement %r"
+            % (name, float(np.abs(got - want).max()), share, agree))
+        require(share <= 1.0 and agree >= 0.999,
+                "crf %s: posteriors differ from the JAX package's" % name)
+    return counts
+
+
 def golden_phase(dev):
     from fast_slic_tpu_torch import cluster as cl, runner
     from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
@@ -1035,6 +1239,32 @@ def profile_phase(name: str, warm, run, frames: int = 1):
                 % (name, us, count, us / count, key[:90]))
 
 
+def profile_crf(dev, frames):
+    """torch.profiler over one frame's graphs and pushes, and over one
+    steady initialize(); inference(CRF_ITERS) cycle of the adjacency CRF."""
+    from fast_slic_tpu_torch import SimpleCRF, SlicAvx2
+    slic = SlicAvx2(num_components=K720, device=dev)
+    crf = SimpleCRF(CRF_C, K720, device=dev)
+    for t, f in enumerate(frames):
+        slic.iterate(f)
+        if t + 1 < len(frames):
+            crf.push_slic_frame(slic).set_proba(crf_proba(t, CRF_C, K720))
+
+    def push_last():
+        slic.slic_model.get_knn_connectivity(slic.last_assignment, CRF_KNN)
+        crf.push_slic_frame(slic).set_proba(
+            crf_proba(len(frames) - 1, CRF_C, K720))
+
+    profile_phase("crf graphs and push, one frame", lambda: None, push_last)
+
+    def cycle():
+        crf.initialize()
+        crf.inference(CRF_ITERS)
+
+    profile_phase("crf initialize(); inference(%d), T=%d" % (
+        CRF_ITERS, len(frames)), cycle, cycle)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1059,6 +1289,7 @@ def main() -> int:
     res = Results()
     fseg = kernel_phase(dev, frames[0], K720, res)
     frame_kernel_phase(dev, list(batches[0]), K720, res, fseg)
+    knn_kernel_phase(dev, res)
     res.log()
 
     counts = {}
@@ -1082,9 +1313,10 @@ def main() -> int:
         dev, [(SlicAvx2, frames), (LSCAvx2, frames[:1])], K720, "preemptive",
         preemptive=True)
     counts["batch"] = batch_phase(dev, batches, K720)
+    counts["crf"] = crf_phase(dev, frames, K720)
     for path, need in (("standard", STANDARD_PATH), ("float", FLOAT_PATH),
                        ("preemptive", PREEMPTIVE_PATH),
-                       ("batch", BATCH_PATH)):
+                       ("batch", BATCH_PATH), ("crf", CRF_PATH)):
         log("slice: %s path launches %s" % (path, json.dumps(counts[path])))
         missing = [k for k in need if counts[path][k] <= 0]
         require(not missing, "kernels never launched on the %s path: %s"
@@ -1106,6 +1338,7 @@ def main() -> int:
         profile_phase("BatchedSlic stack B=%d" % BATCH,
                       lambda: bs.iterate(batches[0]),
                       lambda: bs.iterate(batches[1]), frames=BATCH)
+        profile_crf(dev, frames)
     require("jax" not in sys.modules, "the port imported jax")
 
     rows = []

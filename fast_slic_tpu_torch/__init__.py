@@ -15,9 +15,13 @@ Ported: every distance variant (``Slic``; ``SlicRealDist``,
 the subsampled assign/update loop and its preemptive grid
 (``preemptive=True``), the full assign and connectivity enforcement with
 its exact tie escalation, and batched video frames
-(``fast_slic_tpu_torch.parallel.batch.BatchedSlic``, map and stack modes).
-Debug/profile reports, multi-device meshes and the graph utilities raise
-NotImplementedError naming their ROADMAP.md item.
+(``fast_slic_tpu_torch.parallel.batch.BatchedSlic``, map and stack modes),
+the graph and density utilities (``SlicModel.get_connectivity``,
+``get_knn_connectivity``, ``get_mask_density``,
+``broadcast_density_to_mask``; the KNN is a CUDA kernel on the card) and
+the temporal mean-field CRF (``SimpleCRF``, ``device="cuda"`` by default).
+Debug/profile reports and multi-device meshes raise NotImplementedError
+naming their ROADMAP.md item.
 """
 
 from .models.slic import (  # noqa: F401
@@ -31,6 +35,8 @@ from .models.slic import (  # noqa: F401
 from .avx2 import LSCAvx2, SlicAvx2  # noqa: F401
 from .neon import LSCNeon, SlicNeon  # noqa: F401
 from .model import SlicModel  # noqa: F401
+from .models.crf import SimpleCRF, SimpleCRFFrame  # noqa: F401
+from .ops.graph import NodeConnectivity  # noqa: F401
 from .config import get_supported_archs, is_supported_arch  # noqa: F401
 
 supported_archs = tuple(get_supported_archs())

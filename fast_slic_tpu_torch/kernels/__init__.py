@@ -15,6 +15,7 @@ from . import assign as _assign
 from . import assign_float as _assign_float
 from . import cca as _cca
 from . import fsegsum as _fsegsum
+from . import knn as _knn
 from . import lab as _lab
 from . import lsc_feat as _lsc_feat
 from . import segsum as _segsum
@@ -60,6 +61,10 @@ KERNELS = (
     Kernel("framed_segment_sum", _segsum.framed_segment_sum, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:90"),
+    # not a TPU kernel: the JAX package runs this function as host C++
+    Kernel("knn", _knn.knn, "cuda",
+           "fast_slic_tpu_torch/csrc/knn.cu",
+           "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
 )
 
 

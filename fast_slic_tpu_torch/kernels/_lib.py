@@ -53,6 +53,7 @@ _SIGNATURES = {
                           I, I, I, P],
     "fstt_lsc_feat": [P, P, P, I, P],
     "fstt_fsegsum": [P, P, P, P, P, LL, I, I, I, I, P],
+    "fstt_knn": [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
 }
 
 

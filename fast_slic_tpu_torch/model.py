@@ -172,13 +172,38 @@ class SlicModel:
     # -- graph / density utilities (cfast_slic.pyx:262-324) ------------------
 
     def get_connectivity(self, assignments):
-        raise not_ported("get_connectivity", "§1.10")
+        from .ops import graph
+        nbr, lens = graph.adjacency_matrix(_host_or_tensor(assignments),
+                                           self.num_components, self.device)
+        return graph.NodeConnectivity(matrix=nbr, lens=lens)
 
     def get_knn_connectivity(self, assignments, num_neighbors):
-        raise not_ported("get_knn_connectivity", "§1.10")
+        from .ops import graph
+        nbr, lens = graph.knn(self._clusters, int(num_neighbors),
+                              _host_or_tensor(assignments).shape,
+                              self.device)
+        return graph.NodeConnectivity(matrix=nbr, lens=lens)
 
     def get_mask_density(self, mask, assignments):
-        raise not_ported("get_mask_density", "§1.10")
+        from .ops import graph
+        mask = _host_or_tensor(mask)
+        assignments = _host_or_tensor(assignments)
+        if tuple(mask.shape) != tuple(assignments.shape):
+            raise ValueError(
+                "The shape of mask does not match the one of assignments")
+        return graph.mask_density(mask, assignments, self._clusters,
+                                  self.device)
 
     def broadcast_density_to_mask(self, densities, assignments):
-        raise not_ported("broadcast_density_to_mask", "§1.10")
+        from .ops import graph
+        densities = _host_or_tensor(densities)
+        if densities.shape[0] != self.num_components:
+            raise ValueError(
+                "The shape of densities should match the number of clusters")
+        return graph.density_to_mask(densities, _host_or_tensor(assignments),
+                                     self.num_components, self.device)
+
+
+def _host_or_tensor(a):
+    """A tensor as it is (on any device), anything else as a numpy array."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)

@@ -26,7 +26,11 @@ at stride 3 and at stride 1; and the CCA's segment sum on the component
 ids and values of the first frame's raw assignment, and the per-frame
 segment sum on the same ids as one frame (B=1) and on the four frames of
 the stacked batch (B=4; every device launch listed: the output's zero
-fill beside the kernel).  The frames go through
+fill beside the kernel); the KNN on the clusters of the JAX package's
+first 720p frame at m=4 (every launch listed: the bucketing's torch ops
+beside ``knn_kernel``); and one steady ``initialize(); inference(5)``
+cycle of ``SimpleCRF(21, 1600)`` over four frames with their adjacency
+graphs (every launch listed).  The frames go through
 the public API and the kernel calls through the pipeline's stages, so
 ``--root`` may name another checkout of the port (default: the one holding
 this script) and two versions can be profiled in one run on one card.
@@ -221,6 +225,44 @@ def profile_segment_sum(frame, batch, K, reps=20):
     return out
 
 
+def profile_knn(K, reps=20):
+    """The KNN alone on the clusters of the first frame of
+    chip_smoke.FIXTURE at chip_smoke.CRF_KNN neighbours: ``reps`` calls,
+    every device launch listed."""
+    import torch
+    from chip_smoke import CRF_KNN, FIXTURE, H720, W720
+    from fast_slic_tpu_torch.kernels import knn
+    yxm = np.load(FIXTURE)["slice_clusters"][0]
+    ys = torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).cuda()
+    xs = torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).cuda()
+
+    def run():
+        for _ in range(reps):
+            knn.knn(ys, xs, H720, W720, CRF_KNN)
+    run()
+    return {"knn alone (720p clusters, m=%d)" % CRF_KNN: profiled(run, None)}
+
+
+def profile_crf(frames, K):
+    """One steady initialize(); inference(CRF_ITERS) cycle of a
+    SimpleCRF(CRF_C, K) over the frames with their adjacency graphs,
+    every device launch listed."""
+    from chip_smoke import CRF_C, CRF_ITERS, crf_proba
+    from fast_slic_tpu_torch import SimpleCRF, SlicAvx2
+    slic = SlicAvx2(num_components=K, device="cuda")
+    crf = SimpleCRF(CRF_C, K, device="cuda")
+    for t, f in enumerate(frames):
+        slic.iterate(f)
+        crf.push_slic_frame(slic).set_proba(crf_proba(t, CRF_C, K))
+
+    def cycle():
+        crf.initialize()
+        crf.inference(CRF_ITERS)
+    cycle()
+    return {"SimpleCRF cycle T=%d C=%d N=%d inference(%d)" % (
+        len(frames), CRF_C, K, CRF_ITERS): profiled(cycle, None)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -235,7 +277,7 @@ def main() -> int:
     from chip_smoke import BATCH, H720, K720, W720, make_frames
     sys.path.insert(0, os.path.abspath(args.root))
     sys.modules.pop("fast_slic_tpu_torch", None)
-    from fast_slic_tpu_torch import LSCAvx2, SlicAvx2, SlicRealDist
+    from fast_slic_tpu_torch import LSCAvx2, SlicAvx2, SlicRealDist, kernels
     from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
     frames = make_frames(BATCH, H720, W720)
@@ -252,6 +294,9 @@ def main() -> int:
     out.update(profile_assign(frames[0], K720))
     out.update(profile_assign_float(frames, K720))
     out.update(profile_segment_sum(frames[0], more[:BATCH], K720))
+    if hasattr(kernels, "knn"):  # a checkout from before the KNN has none
+        out.update(profile_knn(K720))
+        out.update(profile_crf(frames, K720))
     for name, kw in (("", {}), (" preemptive", {"preemptive": True}),
                      (" real_noq", {"variant": "real_noq"})):
         bs = BatchedSlic(num_components=K720, batch_mode="stack",

@@ -31,7 +31,14 @@ also with a preemptive-like mask at 720p, a single bin, empty bins and
 unmasked pixels in the last bin.  On the card, the float variants' slices equal the CPU plain
 path, and LSC's labels agree >= 0.999 (its image-wide f32 sums differ by
 order between the two devices); so do the preemptive grid and the batched
-frames (``BatchedSlic`` in stack and map mode).
+frames (``BatchedSlic`` in stack and map mode).  The KNN kernel must
+equal its host loop ``knn_plain`` (m from 1 to more than a window holds,
+centres on and past the image's edges, identical centres, the 720p
+clusters) and the JAX package's lists; the adjacency (a hot node past the
+12-neighbour cap, labels outside [0, K), a 720p frame) and the densities
+on the card those on the CPU; the CRF's class sum on the card the loop's
+bits; and ``SimpleCRF`` at 720p (N=1600, C=21, four frames) the CPU's and
+the JAX package's posteriors within rtol 2e-4, atol 1e-6.
 """
 
 import os
@@ -857,3 +864,167 @@ def test_preempt_golden_on_gpu(cuda):
                              image, tcl.initialize_clusters(image, 256),
                              params, cuda)
     np.testing.assert_array_equal(res.labels, g["std_k256_preempt"])
+
+
+def _centres(rng, K, H, W, edge):
+    """Random float32 centres; ``edge`` puts a fifth of them on the image's
+    edges (and one past them, whose cell the bucketing clamps), and pairs
+    of identical centres (distance-0 ties, ordered by cluster number)."""
+    y = rng.uniform(0, H, K).astype(np.float32)
+    x = rng.uniform(0, W, K).astype(np.float32)
+    if edge:
+        n = K // 20
+        y[:n], x[n:2 * n] = H - 1, W - 1
+        y[2 * n:3 * n], x[3 * n:4 * n] = 0, 0
+        y[4 * n], x[4 * n] = H + 2.5, W + 1.75
+        y[4 * n + 1::7], x[4 * n + 1::7] = y[4 * n], x[4 * n]
+        y[10:20], x[10:20] = y[20:30], x[20:30]
+    return torch.from_numpy(y), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 60])
+@pytest.mark.parametrize("K,H,W,edge", [(300, 240, 320, False),
+                                        (300, 240, 320, True),
+                                        (1600, 720, 1280, True),
+                                        (7, 33, 17, True), (1, 10, 10, False)])
+def test_knn_kernel_matches_plain(cuda, rng, K, H, W, edge, m):
+    """m = 60 is more than a 6x6-cell window holds, so every list is its
+    window's population less the early skip's drops."""
+    from fast_slic_tpu_torch.kernels import knn
+    ys, xs = _centres(rng, K, H, W, edge)
+    want = knn.knn_plain(ys, xs, H, W, m)
+    got = knn.knn(ys.to(cuda), xs.to(cuda), H, W, m)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+def test_knn_kernel_720p_fixture(cuda):
+    from fast_slic_tpu_torch.kernels import knn
+    ref = np.load(os.path.join(ROOT, "tests", "data", "port_crf_ref.npz"))
+    clusters = np.load(os.path.join(ROOT, "tests", "data",
+                                    "port_720p_ref.npz"))["slice_clusters"]
+    for t, yxm in enumerate(clusters):
+        ys = torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).to(cuda)
+        xs = torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).to(cuda)
+        nbr, counts = knn.knn(ys, xs, 720, 1280, 4)
+        np.testing.assert_array_equal(nbr.cpu().numpy(), ref["knn_nbr"][t])
+        np.testing.assert_array_equal(counts.cpu().numpy(),
+                                      ref["knn_lens"][t])
+
+
+def _label_maps(rng):
+    base = rng.integers(0, 200, size=(13, 13))
+    blocks = np.kron(base, np.ones((5, 5), np.int64))[:64, :61]
+    hot = np.full((12, 12), 17, np.int64)
+    ring = [(r, c) for r in range(2, 10) for c in range(2, 10)
+            if r in (2, 9) or c in (2, 9)]
+    for i, (r, c) in enumerate(ring):
+        hot[r, c] = 1 + i * 16 // len(ring)
+    hot[3:9, 3:9] = 0
+    noisy = rng.integers(-1, 41, size=(50, 33))
+    labels = np.load(os.path.join(ROOT, "tests", "data",
+                                  "port_720p_ref.npz"))["slice_labels"][1]
+    return [(blocks, 200), (hot, 18), (noisy, 40), (labels, 1600)]
+
+
+def test_graph_on_gpu_matches_cpu(cuda, rng):
+    """Adjacency (random blocks, a hot node past the 12-neighbour cap,
+    labels outside [0, K), a 720p frame) and densities on the card equal
+    the CPU's."""
+    from fast_slic_tpu_torch.ops import graph
+    for lab, K in _label_maps(rng):
+        for want, got in zip(graph.adjacency_matrix(lab, K, "cpu"),
+                             graph.adjacency_matrix(lab, K, cuda)):
+            np.testing.assert_array_equal(got, want)
+        st = tcl.zeros(K)
+        st.num_members[:] = rng.integers(0, 50, K)
+        mask = rng.integers(0, 256, size=lab.shape, dtype=np.uint8)
+        dens = graph.mask_density(mask, lab, st, "cpu")
+        np.testing.assert_array_equal(
+            graph.mask_density(torch.from_numpy(mask).to(cuda), lab, st,
+                               cuda), dens)
+        np.testing.assert_array_equal(
+            graph.density_to_mask(dens, lab, K, cuda),
+            graph.density_to_mask(dens, lab, K, "cpu"))
+
+
+def test_graph_ops_default_to_the_card(cuda, rng):
+    """With no device named, numpy input goes to the card (the KNN launches
+    its kernel), and tensors on the card stay there."""
+    from fast_slic_tpu_torch.kernels import knn
+    from fast_slic_tpu_torch.ops import graph
+    lab, K = _label_maps(rng)[0]
+    st = tcl.zeros(K)
+    st.y[:] = rng.uniform(0, lab.shape[0], K)
+    st.x[:] = rng.uniform(0, lab.shape[1], K)
+    st.num_members[:] = rng.integers(0, 50, K)
+    before = knn.knn.launches
+    for got, want in ((graph.knn(st, 4, lab.shape),
+                       graph.knn(st, 4, lab.shape, "cpu")),
+                      (graph.knn(st.to_torch(cuda), 4, lab.shape),
+                       graph.knn(st, 4, lab.shape, "cpu")),
+                      (graph.adjacency_matrix(lab, K),
+                       graph.adjacency_matrix(lab, K, "cpu"))):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert knn.knn.launches == before + 2
+    mask = rng.integers(0, 256, size=lab.shape, dtype=np.uint8)
+    np.testing.assert_array_equal(
+        graph.mask_density(torch.from_numpy(mask).to(cuda),
+                           torch.from_numpy(lab).to(cuda), st),
+        graph.mask_density(mask, lab, st, "cpu"))
+    with pytest.raises(ValueError, match="requested"):
+        graph.adjacency_matrix(torch.from_numpy(lab).to(cuda), K, "cpu")
+
+
+@pytest.mark.parametrize("graph_kind", ["adjacency", "knn"])
+def test_crf_on_gpu_matches_cpu(cuda, graph_kind):
+    """SimpleCRF on the card against the CPU and the JAX package's
+    posteriors at 720p (four frames, N=1600, C=21, inference(5)): within
+    rtol 2e-4, atol 1e-6, argmax >= 0.999."""
+    from fast_slic_tpu_torch import SimpleCRF, SlicModel
+    data = os.path.join(ROOT, "tests", "data")
+    ref = np.load(os.path.join(data, "port_720p_ref.npz"))
+    want = np.load(os.path.join(data, "port_crf_ref.npz"))[
+        "q_adj" if graph_kind == "adjacency" else "q_knn"]
+    outs = []
+    for dev in (cuda, "cpu"):
+        crf = SimpleCRF(21, 1600, device=dev)
+        for t, (labels, yxm) in enumerate(zip(ref["slice_labels"],
+                                              ref["slice_clusters"])):
+            st = tcl.zeros(1600)
+            st.y[:], st.x[:] = yxm[:, 0], yxm[:, 1]
+            st.num_members[:] = yxm[:, 2].astype(np.uint32)
+            st.r[:], st.g[:], st.b[:] = yxm[:, 3], yxm[:, 4], yxm[:, 5]
+            model = SlicModel(1600, device=dev)
+            model._clusters, model.initialized = st, True
+            slic = type("SlicResult", (), {"slic_model": model,
+                                           "last_assignment": labels})
+            frame = crf.push_slic_frame(
+                slic, knn=4 if graph_kind == "knn" else None)
+            frame.set_proba(np.random.default_rng(t).dirichlet(
+                np.ones(21), 1600).T.astype(np.float32))
+        crf.initialize()
+        crf.inference(5)
+        stack = crf.inferred_stack()
+        assert stack.device.type == torch.device(dev).type
+        outs.append(stack.cpu().numpy())
+    for got in outs:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
+        assert (got.argmax(1) == want.argmax(1)).mean() >= 0.999
+    np.testing.assert_allclose(outs[0], outs[1], rtol=2e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 21, 1600), (1, 3, 7), (3, 64, 33)])
+def test_crf_class_sum_on_gpu_adds_in_class_order(cuda, rng, shape):
+    """The CRF's class sum (one cumsum on the card) equals adding the
+    classes one by one, bit for bit, as the CPU does."""
+    from fast_slic_tpu_torch.models.crf import _class_sum
+    a = torch.from_numpy((rng.random(shape) * rng.choice([1e-6, 1.0, 37.3],
+                                                         shape))
+                         .astype(np.float32))
+    want = a[:, :1].clone()
+    for c in range(1, shape[1]):
+        want = want + a[:, c:c + 1]
+    _eq(_class_sum(a.to(cuda)), want)
+    _eq(_class_sum(a), want)
