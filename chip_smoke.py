@@ -27,11 +27,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    masked update with that pixel mask at B=4 and B=1, and the components
    and the per-frame segment sum on the four frames' stacked CCA map; the
    f32 segment sum again under frame 0's preemptive mask; the KNN on the
-   clusters of the JAX package's first 720p frame at m = 4, 1 and 8);
+   clusters of the JAX package's first 720p frame at m = 4, 1, 8 and 60,
+   and its bucketing by cell);
    bit-exact (the f32 segment sum against its plain version on the CPU,
    whose order of addition it keeps; on the card index_add_ adds with
    float atomics; the KNN against its host loop), with times, the host
-   time of a lookup, chase and f32 segment-sum call, each kernel's bound
+   time of a lookup, chase, f32 segment-sum and KNN call, each kernel's bound
    (the bytes it must move over 3.35 TB/s or its operations over 67
    TFLOP/s, the larger) and, where one PyTorch call computes the same
    function, that call's time;
@@ -134,20 +135,20 @@ BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
               "connected_components", "lookup", "resolve_orphans")
 # the CRF path: the standard path's kernels, then the graph utilities
-CRF_PATH = STANDARD_PATH + ("knn",)
+CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
 # device kernels of the redesigned calls and the once-a-frame kernels,
 # printed in every profile
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
                   "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
-                  "segment_sum_kernel")
+                  "segment_sum_kernel", "knn_kernel", "knn_buckets_kernel")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
     + [(k, "float") for k in ("lsc_feat", "assign_float", "fsegsum")]
     + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch"),
-       ("knn", "crf")])
+       ("knn", "crf"), ("knn_buckets", "crf")])
 
 
 class SmokeFailure(RuntimeError):
@@ -331,6 +332,9 @@ OPS_PER_VISIT = {"standard": 12, "real": 14, "real_l2": 16, "real_noq": 22,
 # the KNN's work a candidate: two subtractions, two absolutes, an add, the
 # conversion and the compare with the heap's top
 OPS_PER_KNN_VISIT = 7
+# the bucketing's work a cluster: two conversions, two divisions, four
+# clamps, the cell's multiply-add and the count
+OPS_PER_KNN_BUCKET = 10
 
 
 class Results:
@@ -1011,9 +1015,10 @@ def knn_visits(ys, xs, H: int, W: int) -> int:
 
 
 def knn_kernel_phase(dev, res: Results):
-    """The KNN kernel against its plain version (the host loop) on the
-    clusters of the JAX package's first 720p frame (FIXTURE), at the crf
-    phase's m and at 1 and 8."""
+    """The KNN kernels against their plain versions on the clusters of the
+    JAX package's first 720p frame (FIXTURE): the bucketing against its
+    torch ops on the card, the walk against its host loop at the crf
+    phase's m and at 1, 8 and 60 (more than a window holds)."""
     import torch
     from fast_slic_tpu_torch.kernels import knn
 
@@ -1021,7 +1026,16 @@ def knn_kernel_phase(dev, res: Results):
     ys = torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).to(dev)
     xs = torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).to(dev)
     K = ys.shape[0]
-    for m in (CRF_KNN, 1, 8):
+    got = knn.knn_buckets(ys, xs, H720, W720)
+    want = knn.knn_buckets_plain(ys, xs, H720, W720)
+    res.check("knn_buckets", max(max_abs_err(got[0], want[0]),
+                                 max_abs_err(got[1], want[1])))
+    ncell = want[1].numel() - 1
+    res.time("knn_buckets", lambda: knn.knn_buckets(ys, xs, H720, W720),
+             lambda: knn.knn_buckets_plain(ys, xs, H720, W720),
+             nbytes(ys, xs) + 4 * K + 4 * (ncell + 1),
+             OPS_PER_KNN_BUCKET * K + ncell)
+    for m in (CRF_KNN, 1, 8, 60):
         got = knn.knn(ys, xs, H720, W720, m)
         want = knn.knn_plain(ys.cpu(), xs.cpu(), H720, W720, m)
         res.check("knn", max(max_abs_err(got[0].cpu(), want[0]),
@@ -1029,11 +1043,16 @@ def knn_kernel_phase(dev, res: Results):
         log("kernel phase: knn m=%d: %d neighbours for %d clusters"
             % (m, int(want[1].sum()), K))
     visits = knn_visits(yxm[:, 0], yxm[:, 1], H720, W720)
-    log("kernel phase: knn walks %d candidates at 720p K=%d" % (visits, K))
+    log("kernel phase: knn walks %d candidates at 720p K=%d, %d cells"
+        % (visits, K, ncell))
     res.time("knn", lambda: knn.knn(ys, xs, H720, W720, CRF_KNN),
              lambda: knn.knn_plain(ys.cpu(), xs.cpu(), H720, W720, CRF_KNN),
              nbytes(ys, xs) + 4 * K * (CRF_KNN + 1),
              OPS_PER_KNN_VISIT * visits, reps=50, plain_reps=2)
+    log("host: knn %.2f us a call, knn_buckets %.2f us a call (host clock "
+        "over 1000 calls)"
+        % (host_us(lambda: knn.knn(ys, xs, H720, W720, CRF_KNN)),
+           host_us(lambda: knn.knn_buckets(ys, xs, H720, W720))))
 
 
 def timed_call(fn):

@@ -61,8 +61,12 @@ KERNELS = (
     Kernel("framed_segment_sum", _segsum.framed_segment_sum, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:90"),
-    # not a TPU kernel: the JAX package runs this function as host C++
+    # not TPU kernels: the JAX package runs this function as host C++; the
+    # walk over the windows, and its bucketing by cell
     Kernel("knn", _knn.knn, "cuda",
+           "fast_slic_tpu_torch/csrc/knn.cu",
+           "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
+    Kernel("knn_buckets", _knn.knn_buckets, "cuda",
            "fast_slic_tpu_torch/csrc/knn.cu",
            "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
 )

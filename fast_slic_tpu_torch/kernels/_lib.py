@@ -53,7 +53,8 @@ _SIGNATURES = {
                           I, I, I, P],
     "fstt_lsc_feat": [P, P, P, I, P],
     "fstt_fsegsum": [P, P, P, P, P, LL, I, I, I, I, P],
-    "fstt_knn": [P, P, P, P, I, I, I, I, I, P, P, P, P, P],
+    "fstt_knn_buckets": [P, P, I, I, I, I, I, I, P, P, P],
+    "fstt_knn": [P, P, P, P, I, I, I, I, I, P, I, P, P, P],
 }
 
 

@@ -1,11 +1,13 @@
-"""Wrapper of the KNN kernel (``csrc/knn.cu``), which replaces the JAX
+"""Wrappers of the KNN kernels (``csrc/knn.cu``), which replace the JAX
 package's host C++ ``fstpu_knn`` (``fast_slic_tpu/native/cca_native.cpp``;
 there is no TPU kernel for it).
 
-:func:`knn_plain` is the plain version: the JAX package's executable spec
-(``fast_slic_tpu/ops/graph.py:knn_python``) with the native helper's clamp
-of a bucketed cell to the grid.  A CPU tensor goes to it; a CUDA tensor
-launches the kernel.
+:func:`knn_buckets` buckets the clusters by cell (``knn_buckets_kernel``;
+plain version :func:`knn_buckets_plain`, torch ops); :func:`knn` runs it,
+then the walk (``knn_kernel``; plain version :func:`knn_plain`, the JAX
+package's executable spec ``fast_slic_tpu/ops/graph.py:knn_python`` with
+the native helper's clamp of a bucketed cell to the grid).  A CPU tensor
+goes to the plain version; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +19,17 @@ import torch
 
 from . import _lib
 
-__all__ = ["knn", "knn_plain", "grid"]
+__all__ = ["knn", "knn_plain", "knn_buckets", "knn_buckets_plain", "grid"]
+
+# knn_buckets_kernel: cells of its shared count table a pass, and clusters
+# staged at a time for the ordered placement (4 * (49152 + 3 * 2048) bytes
+# of shared memory at most)
+BUCKET_RANGE = 49152
+BUCKET_TILE = 2048
+# knn_kernel: a block's shared memory on sm_90; a heap of more bytes lives
+# in a device scratch, one for each of HEAP_WARPS warps
+SMEM_MAX = 232448
+HEAP_WARPS = 512
 
 
 def grid(H: int, W: int, K: int):
@@ -97,26 +109,13 @@ def knn_plain(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int):
     return torch.from_numpy(out), torch.from_numpy(counts)
 
 
-def knn(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int):
-    """(nbr [K, m] int32, counts [K] int32) on the centres' device; see
-    :func:`knn_plain`."""
-    if ys.shape != xs.shape or ys.ndim != 1:
-        raise ValueError("ys and xs must be [K], got %s and %s"
-                         % (tuple(ys.shape), tuple(xs.shape)))
-    if ys.device.type == "cpu":
-        return knn_plain(ys, xs, H, W, m)
-    if ys.device.type != "cuda":
-        raise ValueError("unsupported device %s" % ys.device)
-    dev = ys.device
-    _lib.check(ys, "ys", torch.float32, dev)
-    _lib.check(xs, "xs", torch.float32, dev)
-    K, m = ys.shape[0], max(int(m), 0)
-    if K == 0 or m == 0:
-        return (torch.full((K, m), -1, dtype=torch.int32, device=dev),
-                torch.zeros(K, dtype=torch.int32, device=dev))
+def knn_buckets_plain(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int):
+    """(sorted_ids [K], cell_start [nh * nw + 1]) int32 on the centres'
+    device: the clusters bucketed by their cell (the centre's, clamped to
+    the grid), ascending cluster number within a cell (a stable sort), and
+    each cell's start in sorted_ids, by torch ops."""
+    K = ys.shape[0]
     S, nh, nw = grid(H, W, K)
-    # bucket the clusters by their cell, clamped to the grid; a stable sort
-    # keeps ascending cluster numbers within a cell
     cy = torch.clamp(torch.div(ys.to(torch.int32), S, rounding_mode="trunc"),
                      0, nh - 1)
     cx = torch.clamp(torch.div(xs.to(torch.int32), S, rounding_mode="trunc"),
@@ -124,19 +123,82 @@ def knn(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int):
     cell = cy.to(torch.int64) * nw + cx
     sorted_ids = torch.sort(cell, stable=True).indices.to(torch.int32)
     # each cell's start in sorted_ids (no host sync, unlike bincount)
-    counts = torch.zeros(nh * nw + 1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(nh * nw + 1, dtype=torch.int32, device=ys.device)
     counts.index_add_(0, cell + 1, torch.ones_like(cy))
-    cell_start = torch.cumsum(counts, 0, dtype=torch.int32)
-    heap = torch.empty((2, m + 1, K), dtype=torch.int32, device=dev)
-    # the kernel writes every entry of both outputs
-    out = torch.empty((K, m), dtype=torch.int32, device=dev)
-    counts = torch.empty(K, dtype=torch.int32, device=dev)
-    _lib.launch("fstt_knn", ys.data_ptr(), xs.data_ptr(),
-                sorted_ids.data_ptr(), cell_start.data_ptr(), K, S, nh, nw,
-                m, heap[0].data_ptr(), heap[1].data_ptr(), out.data_ptr(),
-                counts.data_ptr())
-    knn.launches += 1
-    return out, counts
+    return sorted_ids, torch.cumsum(counts, 0, dtype=torch.int32)
+
+
+def _check_centres(ys: torch.Tensor, xs: torch.Tensor):
+    if ys.shape != xs.shape or ys.ndim != 1:
+        raise ValueError("ys and xs must be [K], got %s and %s"
+                         % (tuple(ys.shape), tuple(xs.shape)))
+    if ys.device.type not in ("cpu", "cuda"):
+        raise ValueError("unsupported device %s" % ys.device)
+    if ys.device.type == "cuda":
+        _lib.check(ys, "ys", torch.float32, ys.device)
+        _lib.check(xs, "xs", torch.float32, ys.device)
+
+
+def knn_buckets(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
+                out=None):
+    """(sorted_ids, cell_start) on the centres' device, as
+    :func:`knn_buckets_plain`; on the card written into ``out`` (two int32
+    tensors [K] and [nh * nw + 1]) when given."""
+    _check_centres(ys, xs)
+    if ys.device.type == "cpu":
+        return knn_buckets_plain(ys, xs, H, W)
+    K = ys.shape[0]
+    S, nh, nw = grid(H, W, K)
+    if out is None:
+        out = (torch.empty(K, dtype=torch.int32, device=ys.device),
+               torch.empty(nh * nw + 1, dtype=torch.int32, device=ys.device))
+    sorted_ids, cell_start = out
+    _lib.check(sorted_ids, "sorted_ids", torch.int32, ys.device, (K,))
+    _lib.check(cell_start, "cell_start", torch.int32, ys.device,
+               (nh * nw + 1,))
+    tile = min(BUCKET_TILE, -(-K // 32) * 32)
+    _lib.launch("fstt_knn_buckets", ys.data_ptr(), xs.data_ptr(), K, S, nh,
+                nw, BUCKET_RANGE, tile, sorted_ids.data_ptr(),
+                cell_start.data_ptr())
+    knn_buckets.launches += 1
+    return sorted_ids, cell_start
+
+
+def knn(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int,
+        packed: bool = False):
+    """(nbr [K, m] int32, counts [K] int32) on the centres' device; see
+    :func:`knn_plain`.  ``packed``: one int32 tensor [K * m + K] instead,
+    nbr's rows then counts, for a single download."""
+    _check_centres(ys, xs)
+    dev = ys.device
+    K, m = ys.shape[0], max(int(m), 0)
+    if dev.type == "cpu":
+        nbr, counts = knn_plain(ys, xs, H, W, m)
+        return torch.cat([nbr.reshape(-1), counts]) if packed else (nbr,
+                                                                    counts)
+    if K == 0 or m == 0:
+        buf = torch.full((K * m + K,), -1, dtype=torch.int32, device=dev)
+        buf[K * m:] = 0
+    else:
+        S, nh, nw = grid(H, W, K)
+        cap = min(m, K - 1) + 1
+        # a heap of more than a block's shared memory: a device scratch
+        heap = 2 * HEAP_WARPS * cap if 8 * cap > SMEM_MAX else 0
+        # one allocation: [heap scratch] nbr, counts | sorted_ids, cell_start
+        # (the kernels write every entry but the scratch's)
+        whole = torch.empty(heap + K * m + 2 * K + nh * nw + 1,
+                            dtype=torch.int32, device=dev)
+        buf = whole[heap:heap + K * m + K]
+        rest = whole[heap + K * m + K:]
+        sorted_ids, cell_start = knn_buckets(ys, xs, H, W,
+                                             (rest[:K], rest[K:]))
+        _lib.launch("fstt_knn", ys.data_ptr(), xs.data_ptr(),
+                    sorted_ids.data_ptr(), cell_start.data_ptr(), K, S, nh,
+                    nw, m, whole.data_ptr() if heap else None, HEAP_WARPS,
+                    buf.data_ptr(), buf[K * m:].data_ptr())
+        knn.launches += 1
+    return buf if packed else (buf[:K * m].view(K, m), buf[K * m:])
 
 
 knn.launches = 0
+knn_buckets.launches = 0

@@ -6,8 +6,8 @@ The counterpart of ``fast_slic_tpu/ops/graph.py`` (reference
 * :func:`adjacency_matrix` / :func:`adjacency` — superpixel adjacency from
   a 2x2 neighbourhood scan with first-come order and a 12-neighbour cap;
 * :func:`knn` — grid-bucketed nearest neighbours of the cluster centres,
-  with the reference's early-skip quirk (``kernels/knn.py``: a CUDA kernel
-  on the card, its plain version ``knn_plain`` on the CPU);
+  with the reference's early-skip quirk (``kernels/knn.py``: two CUDA
+  kernels on the card, the plain version ``knn_plain`` on the CPU);
 * :func:`mask_density` / :func:`density_to_mask` — mask -> cluster density
   pooling and its broadcast back to the pixels.
 
@@ -212,17 +212,21 @@ def knn(clusters, num_neighbors: int, shape, device=None):
     distance is >= the current heap maximum, even if the heap is not yet
     full (fast-slic.cpp:103-108).  Where the centres lie on the card (the
     clusters' tensors, else ``device``, the card by default) this launches
-    the ``knn`` kernel, on the CPU it runs ``kernels.knn.knn_plain``."""
+    the ``knn_buckets`` and ``knn`` kernels and downloads their lists and
+    counts as one buffer; on the CPU it runs ``kernels.knn.knn_plain``."""
     dev = _work_device(device, clusters.y, clusters.x)
     ys = _as_tensor(clusters.y, dev).to(torch.float32)
     xs = _as_tensor(clusters.x, dev).to(torch.float32)
-    nbr, counts = _knn_kernel(ys, xs, int(shape[0]), int(shape[1]),
-                              int(num_neighbors))
-    lens = counts.cpu().numpy().astype(np.int64)
+    K, m = ys.shape[0], max(int(num_neighbors), 0)
+    # nbr's rows, then the counts: one download
+    packed = _knn_kernel(ys, xs, int(shape[0]), int(shape[1]), m,
+                         packed=True).cpu().numpy()
+    nbr = packed[:K * m].reshape(K, m)
+    lens = packed[K * m:].astype(np.int64)
     D = max(1, int(lens.max()) if lens.size else 1)
-    out = np.full((lens.size, D), -1, np.int32)
-    w = min(D, nbr.shape[1])
-    out[:, :w] = nbr[:, :w].cpu().numpy()
+    out = np.full((K, D), -1, np.int32)
+    w = min(D, m)
+    out[:, :w] = nbr[:, :w]
     return out, lens
 
 

@@ -27,11 +27,12 @@ ids and values of the first frame's raw assignment, and the per-frame
 segment sum on the same ids as one frame (B=1) and on the four frames of
 the stacked batch (B=4; every device launch listed: the output's zero
 fill beside the kernel); the KNN on the clusters of the JAX package's
-first 720p frame at m=4 (every launch listed: the bucketing's torch ops
-beside ``knn_kernel``); and one steady ``initialize(); inference(5)``
-cycle of ``SimpleCRF(21, 1600)`` over four frames with their adjacency
-graphs (every launch listed).  The frames go through
-the public API and the kernel calls through the pipeline's stages, so
+first 720p frame at m=4 (every launch listed: ``knn_buckets_kernel``
+beside ``knn_kernel``, or, for a checkout from before them, the
+bucketing's torch ops) and the bucketing alone; and one steady
+``initialize(); inference(5)`` cycle of ``SimpleCRF(21, 1600)`` over four
+frames with their adjacency graphs (every launch listed).  The frames go
+through the public API and the kernel calls through the pipeline's stages, so
 ``--root`` may name another checkout of the port (default: the one holding
 this script) and two versions can be profiled in one run on one card.
 Prints one JSON line.
@@ -228,7 +229,8 @@ def profile_segment_sum(frame, batch, K, reps=20):
 def profile_knn(K, reps=20):
     """The KNN alone on the clusters of the first frame of
     chip_smoke.FIXTURE at chip_smoke.CRF_KNN neighbours: ``reps`` calls,
-    every device launch listed."""
+    every device launch listed; and ``reps`` calls of its bucketing alone
+    where the checkout has it as a kernel."""
     import torch
     from chip_smoke import CRF_KNN, FIXTURE, H720, W720
     from fast_slic_tpu_torch.kernels import knn
@@ -240,7 +242,14 @@ def profile_knn(K, reps=20):
         for _ in range(reps):
             knn.knn(ys, xs, H720, W720, CRF_KNN)
     run()
-    return {"knn alone (720p clusters, m=%d)" % CRF_KNN: profiled(run, None)}
+    out = {"knn alone (720p clusters, m=%d)" % CRF_KNN: profiled(run, None)}
+    if hasattr(knn, "knn_buckets"):
+        def buckets():
+            for _ in range(reps):
+                knn.knn_buckets(ys, xs, H720, W720)
+        buckets()
+        out["knn_buckets alone (720p clusters)"] = profiled(buckets, None)
+    return out
 
 
 def profile_crf(frames, K):

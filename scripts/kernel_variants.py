@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Device time of the CCA components, the assign kernels (quantized and
-float) and the segment sum beside the variants their designs were chosen
-from, at 1280x720, K=1600, on a CUDA GPU.
+float), the segment sum and the KNN beside the variants their designs
+were chosen from, at 1280x720, K=1600, on a CUDA GPU.
 
     python3 scripts/kernel_variants.py
 
 Builds ``scripts/kernel_variants.cu`` (which includes the library's
-``csrc/cca.cu``, ``csrc/assign.cu`` and ``csrc/assign_float.cu``) with the
-library's nvcc flags into
+``csrc/cca.cu``, ``csrc/assign.cu``, ``csrc/assign_float.cu`` and
+``csrc/knn.cu``) with the library's nvcc flags into
 ``build/kernel_variants/``, makes real inputs (the raw assignments of
 SlicAvx2's loop on the four frames of chip_smoke.py, one frame's and the
 stacked [4*720, 1280] map that ``ops.cca.framed_components`` builds; a
@@ -44,7 +44,26 @@ torch.profiler run.  Calls:
   atomic a slot and plane; one kernel for both, the frame a grid row);
   ``atomics`` (one global atomic a pixel and nonzero value: the per-frame
   sum's kernel before this design); ``runs_only`` (a lane's runs, each to
-  device memory).
+  device memory);
+- KNN, on the clusters of the JAX package's first 720p frame at m=4 and
+  m=60: ``library`` (``knn_buckets_kernel`` and ``knn_kernel``: a warp a
+  cluster, its heap in shared memory, lane 0 running it);
+  ``warp_lanes_heap`` (at m=4: the library's bucketing, then its walk with
+  the heap held by the lanes, lane j heap[j], each sift done at once by
+  ballots and shuffles); ``warp_first`` (the library's bucketing, then
+  the warp walk's first design: each batch survivor tested one by one,
+  the heap in shared memory behind a generic pointer);
+  ``thread_per_cluster`` (the design before both, as its wrapper ran it:
+  the bucketing by torch ops, then one thread a cluster with its heap in
+  device memory); ``empty`` (an empty kernel of one warp: the floor of
+  any launch); the bucketing alone, ``buckets`` (the library's), and cut
+  after its count, its scan and its staging (``buckets_count``,
+  ``buckets_scan``, ``buckets_staged``), and the walk alone on the
+  library's buckets, in full (``walk``), cut after reading the window's
+  runs (``walk_setup``) and after the batches' loads, distances and
+  ballots (``walk_loads``, no heap), for the time of its parts, and in
+  full over the first 528 and 132 clusters only (``walk_first_528``,
+  ``walk_first_132``: 4 and 1 warps an SM's worth), for its latency.
 
 Prints the card's name and power limit, then one JSON line of device
 microseconds a call (all of a call's launches) and a launch by kernel.
@@ -69,7 +88,8 @@ VARIANT_CODE = {"real": 0, "real_l2": 1, "real_noq": 2, "lsc": 3}
 
 
 def build():
-    """Compile the variants; returns their four C entry points."""
+    """Compile the variants; returns their C entry points (the KNN's three
+    as a tuple)."""
     from fast_slic_tpu_torch.kernels import _lib
     out_dir = os.path.join(ROOT, "build", "kernel_variants")
     os.makedirs(out_dir, exist_ok=True)
@@ -83,11 +103,15 @@ def build():
     lib.assign_variant.argtypes = [I, P, P, P, P, P, F] + [I] * 11 + [P]
     lib.assign_float_variant.argtypes = [I] + [P] * 7 + [F] + [I] * 12 + [P]
     lib.segsum_variant.argtypes = [I, P, P, P, I, I, I, I, P]
-    fns = (lib.cc_variant, lib.assign_variant, lib.assign_float_variant,
-           lib.segsum_variant)
-    for fn in fns:
+    lib.knn_variant.argtypes = [I, P, P, P, P, I, I, I, I, I, P, P, P, P, P]
+    lib.knn_buckets_variant.argtypes = [I, P, P, I, I, I, I, I, I, P, P, P]
+    lib.knn_walk_variant.argtypes = [I, P, P, P, P, I, I, I, I, I, P, P, P]
+    knn_fns = (lib.knn_variant, lib.knn_buckets_variant, lib.knn_walk_variant)
+    for fn in (lib.cc_variant, lib.assign_variant, lib.assign_float_variant,
+               lib.segsum_variant) + knn_fns:
         fn.restype = I
-    return fns
+    return (lib.cc_variant, lib.assign_variant, lib.assign_float_variant,
+            lib.segsum_variant, knn_fns)
 
 
 def inputs(dev):
@@ -272,6 +296,108 @@ def segsum_cases(segsum_variant, raws, result):
         result["cases"][name] = in_turns(calls)
 
 
+def knn_cases(knn_fns, result):
+    """The KNN call and the design before it, held against the host loop,
+    then profiled in turns beside an empty launch."""
+    import numpy as np
+    import torch
+    from chip_smoke import FIXTURE, H720, W720
+    from fast_slic_tpu_torch.kernels import _lib, knn
+
+    yxm = np.load(FIXTURE)["slice_clusters"][0]
+    ys = torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).cuda()
+    xs = torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).cuda()
+    K = ys.shape[0]
+    S, nh, nw = knn.grid(H720, W720, K)
+    knn_variant, buckets_variant, walk_variant = knn_fns
+
+    def run(v, m):
+        sorted_ids, cell_start = knn.knn_buckets_plain(ys, xs, H720, W720)
+        heap = torch.empty((2, m + 1, K), dtype=torch.int32, device="cuda")
+        out = torch.empty((K, m), dtype=torch.int32, device="cuda")
+        counts = torch.empty(K, dtype=torch.int32, device="cuda")
+        err = knn_variant(v, ys.data_ptr(), xs.data_ptr(),
+                          sorted_ids.data_ptr(), cell_start.data_ptr(), K, S,
+                          nh, nw, m, heap[0].data_ptr(), heap[1].data_ptr(),
+                          out.data_ptr(), counts.data_ptr(), _lib.stream())
+        if err:
+            raise RuntimeError("knn_variant %d: cudaError %d" % (v, err))
+        return out, counts
+
+    def warp_variant(v, m):
+        sorted_ids, cell_start = knn.knn_buckets(ys, xs, H720, W720)
+        out = torch.empty((K, m), dtype=torch.int32, device="cuda")
+        counts = torch.empty(K, dtype=torch.int32, device="cuda")
+        err = knn_variant(v, ys.data_ptr(), xs.data_ptr(),
+                          sorted_ids.data_ptr(), cell_start.data_ptr(), K, S,
+                          nh, nw, m, None, None, out.data_ptr(),
+                          counts.data_ptr(), _lib.stream())
+        if err:
+            raise RuntimeError("knn_variant %d: cudaError %d" % (v, err))
+        return out, counts
+
+    def buckets_cut(stop):
+        sorted_ids = torch.empty(K, dtype=torch.int32, device="cuda")
+        cell_start = torch.empty(nh * nw + 1, dtype=torch.int32,
+                                 device="cuda")
+        err = buckets_variant(stop, ys.data_ptr(), xs.data_ptr(), K, S, nh,
+                              nw, knn.BUCKET_RANGE,
+                              min(knn.BUCKET_TILE, -(-K // 32) * 32),
+                              sorted_ids.data_ptr(), cell_start.data_ptr(),
+                              _lib.stream())
+        if err:
+            raise RuntimeError("knn_buckets_variant %d: cudaError %d"
+                               % (stop, err))
+        return sorted_ids, cell_start
+
+    want = knn.knn_buckets_plain(ys, xs, H720, W720)
+    if not all(torch.equal(g, w) for g, w in zip(buckets_cut(4), want)):
+        raise RuntimeError("knn_buckets_cut differs from the plain version")
+    calls = {"buckets": lambda: knn.knn_buckets(ys, xs, H720, W720)}
+    for name, stop in (("buckets_count", 1), ("buckets_scan", 2),
+                       ("buckets_staged", 3)):
+        calls[name] = lambda stop=stop: buckets_cut(stop)
+    result["cases"]["knn_buckets 720p K=%d" % K] = in_turns(calls)
+    sorted_ids, cell_start = knn.knn_buckets(ys, xs, H720, W720)
+
+    def walk_cut(stop, m, k=K):
+        out = torch.empty((k, m), dtype=torch.int32, device="cuda")
+        counts = torch.empty(k, dtype=torch.int32, device="cuda")
+        err = walk_variant(stop, ys.data_ptr(), xs.data_ptr(),
+                           sorted_ids.data_ptr(), cell_start.data_ptr(), k, S,
+                           nh, nw, m, out.data_ptr(), counts.data_ptr(),
+                           _lib.stream())
+        if err:
+            raise RuntimeError("knn_walk_variant %d: cudaError %d"
+                               % (stop, err))
+        return out, counts
+
+    for m in (4, 60):
+        want = knn.knn_plain(ys, xs, H720, W720, m)
+        if not all(torch.equal(g.cpu(), w)
+                   for g, w in zip(walk_cut(3, m), want)):
+            raise RuntimeError("knn_walk_cut differs from the host loop")
+        result["cases"]["knn walk 720p K=%d m=%d" % (K, m)] = in_turns({
+            "walk": lambda m=m: walk_cut(3, m),
+            "walk_loads": lambda m=m: walk_cut(2, m),
+            "walk_setup": lambda m=m: walk_cut(1, m),
+            "walk_first_528": lambda m=m: walk_cut(3, m, 528),
+            "walk_first_132": lambda m=m: walk_cut(3, m, 132)})
+        calls = {"library": lambda m=m: knn.knn(ys, xs, H720, W720, m),
+                 "warp_first": lambda m=m: warp_variant(2, m),
+                 "thread_per_cluster": lambda m=m: run(0, m)}
+        for vname, call in calls.items():
+            got = call()
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+                raise RuntimeError("knn %s at m=%d differs from the host "
+                                   "loop" % (vname, m))
+        if m < 32:
+            calls["warp_lanes_heap"] = lambda m=m: warp_variant(3, m)
+        calls["empty"] = lambda: knn_variant(1, *[None] * 4, 0, 1, 1, 1, 0,
+                                             *[None] * 4, _lib.stream())
+        result["cases"]["knn 720p K=%d m=%d" % (K, m)] = in_turns(calls)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -284,7 +410,8 @@ def main() -> int:
 
     print(gpu_line(), flush=True)
     dev = torch.device("cuda")
-    cc_variant, assign_variant, float_variant, segsum_variant = build()
+    (cc_variant, assign_variant, float_variant, segsum_variant,
+     knn_fns) = build()
     raws, states, cfg, scal = inputs(dev)
     result = {"device": torch.cuda.get_device_name(0), "cases": {}}
 
@@ -353,6 +480,7 @@ def main() -> int:
                 in_turns(calls))
     float_cases(float_variant, result)
     segsum_cases(segsum_variant, raws, result)
+    knn_cases(knn_fns, result)
     print(json.dumps(result))
     return 0
 

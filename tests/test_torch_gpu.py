@@ -34,7 +34,9 @@ order between the two devices); so do the preemptive grid and the batched
 frames (``BatchedSlic`` in stack and map mode).  The KNN kernel must
 equal its host loop ``knn_plain`` (m from 1 to more than a window holds,
 centres on and past the image's edges, identical centres, the 720p
-clusters) and the JAX package's lists; the adjacency (a hot node past the
+clusters, heaps too large for shared memory, K=60,000 at 1080p) and the
+JAX package's lists, in two launches a call; its bucketing kernel its
+plain version (also in ranges of cells); the adjacency (a hot node past the
 12-neighbour cap, labels outside [0, K), a 720p frame) and the densities
 on the card those on the CPU; the CRF's class sum on the card the loop's
 bits; and ``SimpleCRF`` at 720p (N=1600, C=21, four frames) the CPU's and
@@ -910,6 +912,105 @@ def test_knn_kernel_720p_fixture(cuda):
         np.testing.assert_array_equal(nbr.cpu().numpy(), ref["knn_nbr"][t])
         np.testing.assert_array_equal(counts.cpu().numpy(),
                                       ref["knn_lens"][t])
+
+
+def _fixture_centres(dev, t=0):
+    yxm = np.load(os.path.join(ROOT, "tests", "data",
+                               "port_720p_ref.npz"))["slice_clusters"][t]
+    return (torch.from_numpy(np.ascontiguousarray(yxm[:, 0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(yxm[:, 1])).to(dev))
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "identical", "720p",
+                                  "ranges", "tiny"])
+def test_knn_buckets_kernel_matches_plain(cuda, rng, monkeypatch, case):
+    """The bucketing kernel against its plain version on the CPU and on
+    the card; "ranges" takes the count table in ranges of 37 cells and the
+    clusters 64 at a time (the path of a grid past the table's size)."""
+    from fast_slic_tpu_torch.kernels import knn
+    H, W = 240, 320
+    if case == "720p":
+        H, W = 720, 1280
+        ys, xs = _fixture_centres("cpu")
+    elif case == "tiny":
+        H, W = 10, 10
+        ys, xs = _centres(rng, 1, H, W, False)
+    else:
+        ys, xs = _centres(rng, 2000, H, W, case != "random")
+    if case == "identical":
+        groups = torch.from_numpy(rng.integers(0, 5, ys.shape[0]))
+        ys, xs = ys[groups].contiguous(), xs[groups].contiguous()
+    if case == "ranges":
+        monkeypatch.setattr(knn, "BUCKET_RANGE", 37)
+        monkeypatch.setattr(knn, "BUCKET_TILE", 64)
+    want = knn.knn_buckets_plain(ys, xs, H, W)
+    before = knn.knn_buckets.launches
+    got = knn.knn_buckets(ys.to(cuda), xs.to(cuda), H, W)
+    assert knn.knn_buckets.launches == before + 1
+    for g, w, p in zip(got, want, knn.knn_buckets_plain(ys.to(cuda),
+                                                        xs.to(cuda), H, W)):
+        _eq(g, w)
+        _eq(p, w)
+
+
+def test_knn_kernel_heap_in_device_memory(cuda, rng):
+    """m past what one warp's heap can hold in shared memory (cap > 29,056
+    pairs), with 300 identical centres: the heaps live in the device
+    scratch.  No list reaches 1000, so no heap ever popped and the plain
+    version at m=1000 gives the same lists."""
+    from fast_slic_tpu_torch.kernels import knn
+    K, H, W, m = 30000, 1080, 1920, 30000
+    assert 8 * (min(m, K - 1) + 1) > knn.SMEM_MAX
+    ys, xs = _centres(rng, K, H, W, False)
+    ys[100:400], xs[100:400] = ys[50], xs[50]
+    want_nbr, want_counts = knn.knn_plain(ys, xs, H, W, 1000)
+    assert int(want_counts.max()) < 1000
+    nbr, counts = knn.knn(ys.to(cuda), xs.to(cuda), H, W, m)
+    _eq(counts, want_counts)
+    _eq(nbr[:, :1000], want_nbr)
+    assert bool((nbr[:, 1000:] == -1).all())
+
+
+def test_knn_kernel_large_k_1080p(cuda, rng):
+    """K=60,000 at 1920x1080: 82,944 cells, past the bucketing's shared
+    table, so it counts and places in two ranges of cells."""
+    from fast_slic_tpu_torch.kernels import knn
+    K, H, W = 60000, 1080, 1920
+    S, nh, nw = knn.grid(H, W, K)
+    assert nh * nw > knn.BUCKET_RANGE
+    ys, xs = _centres(rng, K, H, W, False)
+    # some on the edges, some past them (clamped cells)
+    ys[:50], xs[50:100], ys[100:150], xs[150:200] = H - 1, W - 1, 0, 0
+    ys[200:210], xs[200:210] = H + 2.5, W + 1.75
+    for g, w in zip(knn.knn_buckets(ys.to(cuda), xs.to(cuda), H, W),
+                    knn.knn_buckets_plain(ys, xs, H, W)):
+        _eq(g, w)
+    got = knn.knn(ys.to(cuda), xs.to(cuda), H, W, 4)
+    want = knn.knn_plain(ys, xs, H, W, 4)
+    _eq(got[0], want[0])
+    _eq(got[1], want[1])
+
+
+def test_knn_call_makes_two_launches(cuda):
+    """One knn call on the card is two device launches, the bucketing and
+    the walk (no sort, scan or fill beside them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from fast_slic_tpu_torch.kernels import knn
+    ys, xs = _fixture_centres(cuda)
+    knn.knn(ys, xs, 720, 1280, 4)
+    torch.cuda.synchronize()
+    before = (knn.knn.launches, knn.knn_buckets.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        knn.knn(ys, xs, 720, 1280, 4)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in device) == 2, [e.key for e in device]
+    assert any("knn_buckets_kernel" in e.key for e in device)
+    assert any("knn_kernel" in e.key for e in device)
+    assert (knn.knn.launches, knn.knn_buckets.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 def _label_maps(rng):

@@ -9,7 +9,11 @@ package (``fast_slic_tpu/ops/graph.py``), on the CPU.
   ``tests/data/port_720p_ref.npz``, three of which hit the cap;
 * ``knn_plain`` against the JAX ``graph.knn`` (its native helper) at
   m = 1, 4 and 8, on the 720p frames' clusters and on seeded random
-  centres, some on the image's edge;
+  centres, some on the image's edge; ``knn_buckets_plain`` against a numpy
+  rendering of ``fstpu_knn``'s bucketing (random centres, centres on and
+  past the edges, identical centres); numpy models of the two CUDA
+  kernels' algorithms (the bucketing's ranged, staged placement and the
+  warp walk's batched rejection) against the plain versions;
 * ``mask_density`` / ``density_to_mask``, and the ``SlicModel`` methods
   with their ValueErrors (as ``tests/test_api.py`` checks the JAX model);
 * the device rule: tensors are used where they lie, numpy input goes to
@@ -206,6 +210,188 @@ def test_knn_plain_matches_jax_random(seed, K, H, W, m):
     got = knn_kernel.knn(torch.from_numpy(st.y), torch.from_numpy(st.x), H,
                          W, m)
     assert _knn_lists(*got) == want
+
+
+def _c_cell(v, S: int) -> int:
+    """C's (int)v / S: both steps truncate toward zero."""
+    q = abs(int(v)) // S
+    return q if int(v) >= 0 else -q
+
+
+def _fstpu_buckets(y, x, H, W):
+    """fstpu_knn's bucketing (fast_slic_tpu/native/cca_native.cpp:127-134)
+    in numpy: each cluster appended to its clamped cell's list in cluster
+    order; (sorted_ids, cell_start) as the concatenated lists and their
+    offsets."""
+    K = y.shape[0]
+    S = max(int(np.sqrt(float(H * W // K))), 1)
+    nh, nw = -(-H // S), -(-W // S)
+    cells = [[] for _ in range(nh * nw)]
+    for k in range(K):
+        cy = min(max(_c_cell(y[k], S), 0), nh - 1)
+        cx = min(max(_c_cell(x[k], S), 0), nw - 1)
+        cells[cy * nw + cx].append(k)
+    start = np.zeros(nh * nw + 1, np.int32)
+    start[1:] = np.cumsum([len(c) for c in cells])
+    return np.array([k for c in cells for k in c], np.int32), start
+
+
+def _bucket_centres(kind, seed, K, H, W):
+    """float32 centres: random; on and past the image's edges (negative,
+    beyond H and W); or in a few groups of identical centres."""
+    rng = np.random.default_rng(seed)
+    y = rng.uniform(0, H, K).astype(np.float32)
+    x = rng.uniform(0, W, K).astype(np.float32)
+    if kind == "edges":
+        n = max(K // 8, 1)
+        y[:n], x[n:2 * n] = H - 1, W - 1
+        y[2 * n:3 * n], x[3 * n:4 * n] = 0, 0
+        y[4 * n:5 * n] = rng.uniform(-3 * H, -0.5, n)
+        x[5 * n:6 * n] = rng.uniform(W, 3 * W, n)
+        y[6 * n], x[6 * n] = H + 3.5, W + 7.25
+    elif kind == "identical":
+        groups = rng.integers(0, min(3, K), K)
+        y, x = y[groups], x[groups]
+    return y, x
+
+
+BUCKET_CASES = [("random", 0, 300, 240, 320), ("random", 1, 1000, 100, 900),
+                ("edges", 2, 300, 240, 320), ("edges", 3, 57, 33, 17),
+                ("identical", 4, 200, 97, 61), ("identical", 5, 1, 10, 10)]
+
+
+@pytest.mark.parametrize("kind,seed,K,H,W", BUCKET_CASES)
+def test_knn_buckets_plain_matches_fstpu(kind, seed, K, H, W):
+    y, x = _bucket_centres(kind, seed, K, H, W)
+    want_ids, want_start = _fstpu_buckets(y, x, H, W)
+    for fn in (knn_kernel.knn_buckets_plain, knn_kernel.knn_buckets):
+        ids, start = fn(torch.from_numpy(y), torch.from_numpy(x), H, W)
+        assert ids.dtype == start.dtype == torch.int32
+        np.testing.assert_array_equal(ids.numpy(), want_ids)
+        np.testing.assert_array_equal(start.numpy(), want_start)
+
+
+def _bucket_kernel_model(y, x, H, W, range_cells, tile):
+    """knn_buckets_kernel's algorithm (csrc/knn.cu) in numpy: the cells in
+    ranges of ``range_cells``, each counted and scanned, then its clusters
+    placed ``tile`` at a time in chunks of 32 lanes: a lane's rank among the
+    chunk's lanes of its cell (__match_any_sync), the cell's cursor
+    advanced by the group's last lane after the chunk."""
+    K = y.shape[0]
+    S, nh, nw = knn_kernel.grid(H, W, K)
+    cy = np.clip([_c_cell(v, S) for v in y], 0, nh - 1)
+    cx = np.clip([_c_cell(v, S) for v in x], 0, nw - 1)
+    cell = cy * nw + cx
+    ncell = nh * nw
+    rng_ = min(range_cells, ncell)
+    ids = np.full(K, -1, np.int32)
+    start = np.zeros(ncell + 1, np.int32)
+    base = 0
+    for c0 in range(0, ncell, rng_):
+        n = min(rng_, ncell - c0)
+        rel = cell - c0
+        inr = (rel >= 0) & (rel < n)
+        table = np.bincount(rel[inr], minlength=n).astype(np.int64)
+        cursor = base + np.concatenate([[0], np.cumsum(table)[:-1]])
+        start[c0:c0 + n] = cursor
+        for t0 in range(0, K, tile):
+            for j in range(t0, min(t0 + tile, K), 32):
+                lanes = range(j, min(j + 32, K))
+                keys = [int(rel[k]) if inr[k] else -1 for k in lanes]
+                cur = [cursor[c] if c >= 0 else 0 for c in keys]
+                for i, (k, c) in enumerate(zip(lanes, keys)):
+                    if c >= 0:
+                        ids[cur[i] + keys[:i].count(c)] = k
+                for i, c in enumerate(keys):
+                    if c >= 0 and c not in keys[i + 1:]:
+                        cursor[c] = cur[i] + keys.count(c)
+        base += int(table.sum())
+    start[ncell] = K
+    return ids, start
+
+
+@pytest.mark.parametrize("range_cells,tile", [(49152, 2048), (7, 32),
+                                              (100, 64), (1, 96)])
+@pytest.mark.parametrize("kind,seed,K,H,W", BUCKET_CASES[:5])
+def test_knn_bucket_kernel_model(kind, seed, K, H, W, range_cells, tile):
+    """The kernel's ranged, staged placement gives the stable buckets for
+    any range of cells and tile of clusters."""
+    y, x = _bucket_centres(kind, seed, K, H, W)
+    ids, start = _bucket_kernel_model(y, x, H, W, range_cells, tile)
+    want_ids, want_start = knn_kernel.knn_buckets_plain(
+        torch.from_numpy(y), torch.from_numpy(x), H, W)
+    np.testing.assert_array_equal(ids, want_ids.numpy())
+    np.testing.assert_array_equal(start, want_start.numpy())
+
+
+def _warp_walk(y, x, H, W, m):
+    """knn_kernel's walk (csrc/knn.cu) in numpy: each query's window rows
+    as one sequence of candidates, taken 32 a batch; the candidates whose
+    distance reaches the heap's top at the batch's start are dropped at
+    once, the others run one by one in lane order against the current
+    top, with the heap's push and at most one pop."""
+    K = y.shape[0]
+    S, nh, nw = knn_kernel.grid(H, W, K)
+    ids, start = (t.numpy() for t in knn_kernel.knn_buckets_plain(
+        torch.from_numpy(y), torch.from_numpy(x), H, W))
+    out = np.full((K, m), -1, np.int32)
+    counts = np.zeros(K, np.int32)
+    for k in range(K):
+        cy, cx = _c_cell(y[k], S), _c_cell(x[k], S)
+        gy0, gy1 = max(cy - 3, 0), min(cy + 3, nh)
+        gx0, gx1 = max(cx - 3, 0), min(cx + 3, nw)
+        seq = []
+        if gx0 < gx1:
+            for gy in range(gy0, gy1):
+                seq.extend(ids[start[gy * nw + gx0]:start[gy * nw + gx1]])
+        heap = []
+        for b0 in range(0, len(seq), 32):
+            batch = seq[b0:b0 + 32]
+            dist = [int(abs(x[n] - x[k]) + abs(y[n] - y[k])) for n in batch]
+            top = heap[0][0] if heap else None
+            for d, n in zip(dist, batch):
+                if n == k or (top is not None and d >= top):
+                    continue
+                if heap and heap[0][0] <= d:
+                    continue
+                knn_kernel._heap_push(heap, (d, int(n)))
+                if len(heap) > m:
+                    knn_kernel._heap_pop(heap)
+        counts[k] = len(heap)
+        out[k, :len(heap)] = [n for _, n in heap]
+    return out, counts
+
+
+@pytest.mark.parametrize("seed,K,H,W", [(0, 300, 240, 320), (1, 50, 97, 61),
+                                        (2, 1000, 100, 900)])
+@pytest.mark.parametrize("m", [1, 4, 8, 60])
+def test_knn_warp_walk_matches_plain(seed, K, H, W, m):
+    """Rejecting a batch's candidates against the top read at its start
+    changes nothing: the heap's maximum never rises during a walk."""
+    rng = np.random.default_rng(seed)
+    yxm = np.zeros((K, 6), np.float32)
+    yxm[:, 0] = rng.uniform(0, H, K)
+    yxm[:, 1] = rng.uniform(0, W, K)
+    yxm[:5, 0], yxm[5:10, 1] = H - 1, W - 1
+    yxm[10:15, 0], yxm[15:20, 1] = 0, 0
+    yxm[20, 0], yxm[20, 1] = H + 3.5, W + 7.25
+    y, x = yxm[:, 0].copy(), yxm[:, 1].copy()
+    nbr, counts = knn_kernel.knn_plain(torch.from_numpy(y),
+                                       torch.from_numpy(x), H, W, m)
+    got = _warp_walk(y, x, H, W, m)
+    np.testing.assert_array_equal(got[0], nbr.numpy())
+    np.testing.assert_array_equal(got[1], counts.numpy())
+
+
+def test_knn_packed_layout():
+    """knn(..., packed=True) is nbr's rows, then the counts."""
+    y, x = _bucket_centres("edges", 6, 120, 60, 80)
+    ys, xs = torch.from_numpy(y), torch.from_numpy(x)
+    nbr, counts = knn_kernel.knn(ys, xs, 60, 80, 5)
+    packed = knn_kernel.knn(ys, xs, 60, 80, 5, packed=True)
+    assert packed.dtype == torch.int32 and packed.shape == (120 * 6,)
+    np.testing.assert_array_equal(packed[:600].reshape(120, 5), nbr)
+    np.testing.assert_array_equal(packed[600:], counts)
 
 
 def test_knn_degenerate():
