@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU and check
 them: the standard main path, the float-distance path (the real variants
-and LSC), the preemptive grid, batched frames (BatchedSlic) and the CRF
-refinement (the graph utilities and SimpleCRF).
+and LSC), the preemptive grid, batched frames (BatchedSlic), the CRF
+refinement (the graph utilities and SimpleCRF) and the rest of the public
+API (the debug recorder, profile=True and enforce_connectivity).
 
     python3 chip_smoke.py            # from the repository root, on a GPU
     python3 chip_smoke.py --profile  # also: torch.profiler over one frame
@@ -63,7 +64,19 @@ Phases (any failure exits non-zero; no phase's error is caught):
    within rtol 2e-4, atol 1e-6 of the JAX package's with >= 0.999 of the
    argmax classes equal; ms of each call a frame and of a cycle (CUDA
    events and the host clock);
-9. golden: the seven standard and the three real-distance golden cases
+9. api: the launchers' skip of a pass with no rows (rem >= H) against
+   the plain versions; debug_mode=True on SlicAvx2, LSCAvx2 and
+   SlicAvx2(preemptive=True) on frame 0 (max_iter 10): every one of the
+   11 snapshots (assignment, min_dists, clusters) equals the plain path's
+   as arrays (LSC: assignments >= 0.999, >= 0.999 of min_dists within
+   rtol 1e-4, clusters within 1 or 1 %), the labels equal the default
+   run's (and for SlicAvx2 the JAX package's), SlicAvx2's report is
+   rendered once (its bytes and render time logged); profile=True on
+   SlicAvx2 and LSCAvx2 (labels equal the default run's, the sections
+   summed); the standalone enforce_connectivity on frames 0-2's raw
+   pre-CCA assignments at the pipeline's threshold (frames 1-2 tie)
+   equals the frames' labels, the JAX package's and the plain path;
+10. golden: the seven standard and the three real-distance golden cases
    agree 1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -136,6 +149,11 @@ BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "connected_components", "lookup", "resolve_orphans")
 # the CRF path: the standard path's kernels, then the graph utilities
 CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
+# the api phase: debug and profiled frames of SlicAvx2, LSCAvx2 and the
+# preemptive grid, and the standalone enforce_connectivity
+API_PATH = ("lab", "assign", "assign_float", "slic_update",
+            "slic_update_masked", "segment_sum", "connected_components",
+            "lookup", "resolve_orphans", "lsc_feat", "fsegsum")
 # device kernels of the redesigned calls and the once-a-frame kernels,
 # printed in every profile
 PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
@@ -1186,6 +1204,251 @@ def crf_phase(dev, frames, K: int):
     return counts
 
 
+def short_rows_check(dev):
+    """The launchers' skip of a pass with no rows (rem >= H: a 1-row image
+    at stride 3, remainders 1 and 2; a 4-row image at stride 7, remainder
+    5): assign, float assign, update and masked update equal their plain
+    versions, the assignment and min_dists stay as they were and the sums
+    are zero.  Run before the api phase's counts are reset."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
+    from fast_slic_tpu_torch.kernels import assign, assign_float, segsum
+
+    rng = np.random.default_rng(7)
+    for H, stride, rem in ((1, 3, 1), (1, 3, 2), (4, 7, 5)):
+        W, K = 61, 5
+        image = rng.integers(0, 256, size=(H, W, 3)).astype(np.uint8)
+        cfg = StaticConfig(H=H, W=W, K=K, variant="real")
+        scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+        planes, st, _ = pipeline.stage_setup(
+            torch.from_numpy(image).to(dev),
+            cl.initialize_clusters(image, K).to_torch(dev), cfg, scal)
+        cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+        table = pipeline.center_table(st)
+        old = torch.from_numpy(rng.integers(0, K, size=(H, W)).astype(
+            np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random((H, W)) < 0.7).to(dev)
+        for fill, fns in ((UNASSIGNED, (assign.assign, assign.plain)),
+                          (-1.0, (assign_float.assign_float,
+                                  assign_float.plain))):
+            outs = []
+            for fn in fns:
+                a = old.clone()
+                md = torch.full((H, W), fill, device=dev,
+                                dtype=torch.int32 if fill == UNASSIGNED
+                                else torch.float32)
+                args = (() if fn in (assign.assign, assign.plain)
+                        else ("real",))
+                fn(planes, table, cand, a, scal.coef, cfg.S, stride, rem,
+                   *args, True, md)
+                outs.append((a, md))
+            require(all(torch.equal(x, y) for x, y in zip(*outs))
+                    and torch.equal(outs[0][0], old)
+                    and bool((outs[0][1] == fill).all()),
+                    "%s at H=%d stride %d rem %d: the skipped pass changed "
+                    "its outputs" % (fns[0].__name__, H, stride, rem))
+        for got, want in (
+                (segsum.slic_update(old, planes, K, stride, rem),
+                 segsum.slic_update_plain(old, planes, K, stride, rem)),
+                (segsum.slic_update_masked(old, planes, mask, K, stride,
+                                           rem),
+                 segsum.slic_update_masked_plain(old, planes, mask, K,
+                                                 stride, rem))):
+            require(torch.equal(got, want) and not bool(got.any()),
+                    "update at H=%d stride %d rem %d: sums not zero"
+                    % (H, stride, rem))
+    log("api: the launchers' rem >= H skip leaves assign, float assign, "
+        "update and masked update equal to their plain versions (H=1 "
+        "stride 3 rem 1, 2; H=4 stride 7 rem 5)")
+
+
+def snapshots_equal(tag, got, ref, lsc=False):
+    """Two runs' recorder snapshots (utils.recorder.Snapshots) compared as
+    arrays: equal, or for LSC each snapshot's assignment agreeing >= 0.999,
+    >= 0.999 of its min_dists within rtol 1e-4, atol 1e-6 and its clusters
+    within 1 or 1 %."""
+    require(got.iterations == ref.iterations,
+            "%s: snapshot iterations %s vs %s" % (tag, got.iterations,
+                                                 ref.iterations))
+    worst = []
+    for t, it in enumerate(got.iterations):
+        a, b = got.assignments[t], ref.assignments[t]
+        d, e = got.min_dists[t], ref.min_dists[t]
+        require(a.shape == b.shape and d.dtype == e.dtype,
+                "%s iteration %d: shapes or dtypes differ" % (tag, it))
+        fields = list(zip(got.clusters[t].fields(),
+                          ref.clusters[t].fields()))
+        if not lsc:
+            require(np.array_equal(a, b) and np.array_equal(d, e)
+                    and all(np.array_equal(x, y) for x, y in fields),
+                    "%s iteration %d: snapshot differs from the plain path"
+                    % (tag, it))
+            continue
+        agree = float((a == b).mean())
+        close = float(np.isclose(d, e, rtol=1e-4, atol=1e-6).mean())
+        far = sum(int((~np.isclose(x.astype(np.float64),
+                                   y.astype(np.float64), rtol=0.01,
+                                   atol=1.0)).sum()) for x, y in fields)
+        worst.append((agree, close, far))
+        require(agree >= 0.999 and close >= 0.999 and far == 0,
+                "%s iteration %d: assignment agreement %r, min_dists close "
+                "%r, cluster values beyond 1 or 1 %% %d"
+                % (tag, it, agree, close, far))
+    if lsc:
+        log("api %s: lowest assignment agreement %r, lowest min_dists share "
+            "within rtol 1e-4 %r, cluster values beyond 1 or 1 %%: %d"
+            % (tag, min(w[0] for w in worst), min(w[1] for w in worst),
+               max(w[2] for w in worst)))
+
+
+def section_sums(report: str):
+    """The execute section's children of a timing report: (per-name sums
+    in us, per-name lists of durations)."""
+    rep = json.loads(report)
+    exe = [c for c in rep["children"] if c["name"] == "execute"][0]
+    sums, lists = {}, {}
+    for c in exe["children"]:
+        require(isinstance(c.get("duration"), int),
+                "section %s has no integer duration" % c["name"])
+        sums[c["name"]] = sums.get(c["name"], 0) + c["duration"]
+        lists.setdefault(c["name"], []).append(c["duration"])
+    return sums, lists
+
+
+def api_phase(dev, frames, K: int):
+    """The rest of the public API on ``dev`` (phase 9): debug_mode on
+    SlicAvx2, LSCAvx2 and SlicAvx2(preemptive=True) on frame 0 (every
+    snapshot against the plain path's; the labels against the default
+    run's and, for SlicAvx2, the JAX package's; SlicAvx2's report rendered
+    once), profile=True on SlicAvx2 and LSCAvx2 (labels against the
+    default run's, sections summed), and the standalone
+    enforce_connectivity on frames 0-2's raw pre-CCA assignments (against
+    the frames' labels, the JAX package's and the plain path).  Returns
+    the launch counts of the device runs."""
+    import torch
+    from fast_slic_tpu_torch import (LSCAvx2, SlicAvx2, enforce_connectivity,
+                                     pipeline)
+    from fast_slic_tpu_torch import cluster as cl
+    from fast_slic_tpu_torch.config import UNASSIGNED, StaticConfig
+    from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
+    from fast_slic_tpu_torch.ops.cca import enforce_connectivity_flagged
+
+    short_rows_check(dev)
+    fixture = np.load(FIXTURE)
+    frame = frames[0]
+    runs = {}
+    reset_launches()
+    for name, cls, kw in (("SlicAvx2", SlicAvx2, {}),
+                          ("LSCAvx2", LSCAvx2, {}),
+                          ("SlicAvx2 preemptive", SlicAvx2,
+                           {"preemptive": True})):
+        default = cls(num_components=K, device=dev, **kw)
+        ref, _, default_ms = timed_call(lambda: default.iterate(frame))
+        dbg = cls(num_components=K, device=dev, debug_mode=True, **kw)
+        labels, _, debug_ms = timed_call(lambda: dbg.iterate(frame))
+        require(np.array_equal(labels, ref),
+                "%s debug_mode: labels differ from the default run" % name)
+        prof = None
+        if not kw:
+            prof = cls(num_components=K, device=dev, **kw)
+            prof.slic_model.profile = True
+            prof_labels, _, prof_ms = timed_call(lambda: prof.iterate(frame))
+            require(np.array_equal(prof_labels, ref),
+                    "%s profile=True: labels differ from the default run"
+                    % name)
+            prof = (prof.slic_model.last_timing_report, prof_ms)
+        runs[name] = (cls, kw, labels, dbg.slic_model, prof, default_ms,
+                      debug_ms)
+
+    # the standalone enforce_connectivity on frames 0-2's raw assignments:
+    # each frame's pre-CCA assignment from the state the model had before it
+    slic = SlicAvx2(num_components=K, device=dev)
+    cfg = StaticConfig(H=frame.shape[0], W=frame.shape[1], K=K)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    thres = int(scal.thres)
+    standalone = []
+    for f in frames[:3]:
+        model = slic.slic_model
+        start = (model._clusters.copy() if model.initialized
+                 else cl.initialize_clusters(f, K))
+        labels = slic.iterate(f)
+        raw = pipeline.iterate_graph(torch.from_numpy(f).to(dev),
+                                     start.to_torch(dev), cfg, scal, 10,
+                                     3).raw_assignment
+        raw_np = raw.cpu().numpy()
+        k_inferred = int(raw_np[raw_np != UNASSIGNED].max()) + 1
+        _, tie = enforce_connectivity_flagged(raw, k_inferred, thres)
+        got, _, host_ms = timed_call(
+            lambda: enforce_connectivity(raw_np.copy(), thres, device=dev))
+        standalone.append((labels, raw_np, k_inferred, bool(tie), got,
+                           host_ms))
+    counts = launch_counts()
+
+    for name, (cls, kw, labels, model, prof, default_ms,
+               debug_ms) in runs.items():
+        lsc = cls is LSCAvx2
+        plain = cls(num_components=K, device="cpu", debug_mode=True, **kw)
+        t0 = time.perf_counter()
+        plain.iterate(frame)
+        plain_s = time.perf_counter() - t0
+        snaps = model.last_recorder_snapshots
+        snapshots_equal(name, snaps,
+                        plain.slic_model.last_recorder_snapshots, lsc)
+        copy_us = [c["duration"] for c in json.loads(
+            model.last_timing_report)["children"] if c["name"] == "recorder"]
+        log("api %s debug_mode (%dx%d, K=%d, max_iter 10): %d snapshots "
+            "equal the plain path's%s (the plain path took %.1f s on the "
+            "CPU); labels equal the default run's; host clock %.3f ms the "
+            "debug frame, %.3f ms the default frame before it; snapshots' "
+            "copy to the host %s us (CUDA events), %d bytes"
+            % (name, frame.shape[1], frame.shape[0], K, len(snaps.iterations),
+               " within the LSC contract" if lsc else "", plain_s, debug_ms,
+               default_ms, copy_us,
+               snaps.assignments.nbytes + snaps.min_dists.nbytes))
+        if name == "SlicAvx2":
+            require_fixture("api SlicAvx2 debug frame 1", labels,
+                            fixture["slice_labels"][0])
+            t0 = time.perf_counter()
+            report = model.last_recorder_report
+            render_s = time.perf_counter() - t0
+            require(report.startswith('{"height": %d, "width": %d, '
+                                      '"snapshots": [' % frame.shape[:2])
+                    and report.count('"iteration": ') == len(snaps.iterations)
+                    and report.endswith("]}]}"),
+                    "SlicAvx2: the recorder report is malformed")
+            log("api SlicAvx2 debug_mode: the recorder report rendered once "
+                "in %.3f s on the host, %d bytes"
+                % (render_s, len(report.encode())))
+        if prof is not None:
+            sums, lists = section_sums(prof[0])
+            log("api %s profile=True: labels equal the default run's; host "
+                "clock %.3f ms; section sums (us, CUDA events) %s"
+                % (name, prof[1], json.dumps(sums)))
+            for sec in ("assign", "update", "after_update"):
+                if sec in lists:
+                    log("api %s profile=True: %s a iteration (us) %s"
+                        % (name, sec, lists[sec]))
+
+    for t, (labels, raw_np, k_inferred, tie, got,
+            host_ms) in enumerate(standalone):
+        plain = enforce_connectivity(raw_np.copy(), thres, device="cpu")
+        require(k_inferred == K, "frame %d: K inferred %d" % (t, k_inferred))
+        require(got.dtype == raw_np.dtype and np.array_equal(got, plain),
+                "frame %d: enforce_connectivity differs from the plain path"
+                % t)
+        require(np.array_equal(got, labels.astype(np.int32)),
+                "frame %d: enforce_connectivity differs from the frame's "
+                "labels" % t)
+        require_fixture("api enforce_connectivity frame %d" % (t + 1),
+                        got.astype(np.int16), fixture["slice_labels"][t])
+        log("api enforce_connectivity frame %d (K inferred %d, threshold "
+            "%d): %.3f ms host clock, top-K boundary tie %s; equals the "
+            "frame's labels and the plain path"
+            % (t + 1, k_inferred, thres, host_ms, tie))
+    return counts
+
+
 def golden_phase(dev):
     from fast_slic_tpu_torch import cluster as cl, runner
     from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
@@ -1333,9 +1596,11 @@ def main() -> int:
         preemptive=True)
     counts["batch"] = batch_phase(dev, batches, K720)
     counts["crf"] = crf_phase(dev, frames, K720)
+    counts["api"] = api_phase(dev, frames, K720)
     for path, need in (("standard", STANDARD_PATH), ("float", FLOAT_PATH),
                        ("preemptive", PREEMPTIVE_PATH),
-                       ("batch", BATCH_PATH), ("crf", CRF_PATH)):
+                       ("batch", BATCH_PATH), ("crf", CRF_PATH),
+                       ("api", API_PATH)):
         log("slice: %s path launches %s" % (path, json.dumps(counts[path])))
         missing = [k for k in need if counts[path][k] <= 0]
         require(not missing, "kernels never launched on the %s path: %s"

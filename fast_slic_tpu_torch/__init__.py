@@ -11,16 +11,20 @@ runs each kernel's plain PyTorch version.  The arch names ("standard",
 "x64/avx2", "arm/neon", "xla", "pallas") are accepted for API parity.
 
 Ported: every distance variant (``Slic``; ``SlicRealDist``,
-``SlicRealDistL2``, ``SlicRealDistNoQ``, ``LSC``) with CIELAB conversion,
-the subsampled assign/update loop and its preemptive grid
-(``preemptive=True``), the full assign and connectivity enforcement with
-its exact tie escalation, and batched video frames
+``SlicRealDistL2``, ``SlicRealDistNoQ``, ``LSC``; the aliases ``SlicAvx2``,
+``LSCAvx2``, ``SlicNeon``, ``LSCNeon``, ``SlicPallas`` and ``LSCPallas``)
+with CIELAB conversion, the subsampled assign/update loop and its
+preemptive grid (``preemptive=True``), the full assign and connectivity
+enforcement with its exact tie escalation, the debug recorder
+(``debug_mode=True``: ``slic_model.last_recorder_report``) and the
+per-iteration timing report (``slic_model.profile = True``), the standalone
+:func:`enforce_connectivity`, batched video frames
 (``fast_slic_tpu_torch.parallel.batch.BatchedSlic``, map and stack modes),
 the graph and density utilities (``SlicModel.get_connectivity``,
 ``get_knn_connectivity``, ``get_mask_density``,
 ``broadcast_density_to_mask``; the KNN is a CUDA kernel on the card) and
 the temporal mean-field CRF (``SimpleCRF``, ``device="cuda"`` by default).
-Debug/profile reports and multi-device meshes raise NotImplementedError
+Multi-device meshes (``BatchedSlic(mesh=...)``) raise NotImplementedError
 naming their ROADMAP.md item.
 """
 
@@ -31,6 +35,8 @@ from .models.slic import (  # noqa: F401
     SlicRealDistL2,
     SlicRealDistNoQ,
     LSC,
+    SlicPallas,
+    LSCPallas,
 )
 from .avx2 import LSCAvx2, SlicAvx2  # noqa: F401
 from .neon import LSCNeon, SlicNeon  # noqa: F401
@@ -42,3 +48,35 @@ from .config import get_supported_archs, is_supported_arch  # noqa: F401
 supported_archs = tuple(get_supported_archs())
 
 __version__ = "0.1.0"
+
+
+def enforce_connectivity(assignments, min_threshold, device="cuda"):
+    """Standalone connectivity enforcement (cfast_slic.pyx:371-396), as
+    ``fast_slic_tpu.enforce_connectivity``.
+
+    assignments: integer [H, W] label map.  Labels are cast to uint16
+    (``& 0xFFFF``; 0xFFFF is unassigned) and K is the largest other label
+    plus 1 (1 if there is none).  Returns the relabelled map in the input's
+    dtype, also written back into the input when it is writable.  Runs
+    the device CCA on ``device`` (the card by default, raising without
+    one; ``"cpu"`` for the plain path), with the exact tie escalation."""
+    import numpy as np
+    import torch
+
+    from .config import UNASSIGNED
+    from .model import resolve_device
+    from .ops.cca import enforce_connectivity_exact
+
+    arr = np.asarray(assignments)
+    u = arr.astype(np.int64) & 0xFFFF
+    labels = u[u != UNASSIGNED]
+    K = int(labels.max()) + 1 if labels.size else 1
+    dev = resolve_device(device)
+    out, _ = enforce_connectivity_exact(
+        torch.from_numpy(u.astype(np.int32)).to(dev), K, int(min_threshold))
+    out = out.cpu().numpy().astype(arr.dtype)
+    try:
+        arr[...] = out
+        return arr
+    except (ValueError, TypeError):
+        return out

@@ -75,6 +75,7 @@ class StaticConfig:
     manhattan_spatial_dist: bool = True
     float_color: bool = True   # ContextRealDistNoQ.float_color (no-op; context.h:116)
     preemptive: bool = False   # the preemptive grid (preemptive.h)
+    debug_mode: bool = False   # per-iteration recorder snapshots
     # Per-cell candidate list length (see pipeline.build_candidates); an
     # overflow is flagged and the runner re-runs with 3x the slots (max 48).
     cand_slots: int = 16

@@ -68,7 +68,8 @@ def plain(planes, table, cand, assignment, coef, S: int, stride: int,
     H, W = assignment.shape
     dev = planes.device
     C = cand.shape[2]
-    rows = torch.arange(rem, H, stride, device=dev)
+    # no rows when rem >= H (a short image), as the kernel's launcher skips
+    rows = torch.arange(min(rem, H), H, stride, device=dev)
     cols = torch.arange(W, device=dev)
     ii = rows[:, None].int()
     jj = cols[None, :].int()
@@ -130,7 +131,8 @@ def assign(planes, table, cand, assignment, coef, S: int, stride: int,
                 cand.data_ptr(), assignment.data_ptr(), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 int(bool(manhattan)), table.shape[-2], B)
-    assign.launches += 1
+    # the launcher skips a pass with no rows (rem >= H)
+    assign.launches += rem < H
     return assignment
 
 

@@ -71,7 +71,8 @@ def plain(planes, table, cand, assignment, coef, S: int, stride: int,
     H, W = assignment.shape
     dev = planes.device
     C = cand.shape[2]
-    rows = torch.arange(rem, H, stride, device=dev)
+    # no rows when rem >= H (a short image), as the kernel's launcher skips
+    rows = torch.arange(min(rem, H), H, stride, device=dev)
     cols = torch.arange(W, device=dev)
     ii = rows[:, None].int()
     jj = cols[None, :].int()
@@ -183,7 +184,8 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 _VARIANT_CODE[variant], int(bool(manhattan)),
                 table.shape[-2], B)
-    assign_float.launches += 1
+    # the launcher skips a pass with no rows (rem >= H)
+    assign_float.launches += rem < H
     return assignment
 
 

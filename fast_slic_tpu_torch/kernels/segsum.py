@@ -60,7 +60,8 @@ def _update_plain(assignment, planes, mask, K: int, stride: int, rem: int):
             for f in range(assignment.shape[0])], dim=1)
     H, W = assignment.shape
     dev = assignment.device
-    rows = torch.arange(rem, H, stride, device=dev)
+    # no rows when rem >= H (a short image), as the kernel's launcher skips
+    rows = torch.arange(min(rem, H), H, stride, device=dev)
     a = assignment[rows].long()
     ii = rows[:, None].expand(a.shape)
     jj = torch.arange(W, device=dev)[None, :].expand(a.shape)
@@ -115,7 +116,8 @@ def slic_update(assignment, planes, K: int, stride: int, rem: int):
         raise ValueError("unsupported device %s" % dev)
     out = _launch_update("fstt_slic_update", assignment, planes, None, K,
                          stride, rem)
-    slic_update.launches += 1
+    # the launcher skips a pass with no rows (rem >= H)
+    slic_update.launches += rem < assignment.shape[-2]
     return out
 
 
@@ -134,7 +136,8 @@ def slic_update_masked(assignment, planes, mask, K: int, stride: int,
         raise ValueError("unsupported device %s" % dev)
     out = _launch_update("fstt_slic_update_masked", assignment, planes, mask,
                          K, stride, rem)
-    slic_update_masked.launches += 1
+    # the launcher skips a pass with no rows (rem >= H)
+    slic_update_masked.launches += rem < assignment.shape[-2]
     return out
 
 

@@ -22,7 +22,6 @@ from .config import (
     RuntimeParams,
     StaticConfig,
     check_arch,
-    not_ported,
 )
 
 _REAL_DIST_TO_VARIANT = {
@@ -71,6 +70,9 @@ class SlicModel:
         self.convert_to_lab = False
         self.float_color = True
         self.debug_mode = False
+        # profile=True: one assign / update section an iteration in
+        # last_timing_report (context.cpp:158-175), without debug_mode's
+        # snapshots
         self.profile = False
         self.preemptive = False
         self.preemptive_thres = 0.05
@@ -80,6 +82,9 @@ class SlicModel:
         self.initialized = False
         self.last_cca_tie = False  # the last iterate took the tie escalation
         self.last_timing_report = ""
+        self.last_recorder_report = ""
+        # debug_mode: the last iterate's snapshots (utils.recorder.Snapshots)
+        self.last_recorder_snapshots = None
 
     # -- cluster state accessors (cfast_slic.pyx:45-121) --------------------
 
@@ -116,10 +121,6 @@ class SlicModel:
             ) from None
 
     def _static_config(self, H: int, W: int) -> StaticConfig:
-        if self.debug_mode:
-            raise not_ported("debug_mode=True", "§1.15")
-        if self.profile:
-            raise not_ported("profile=True", "§1.15")
         return StaticConfig(
             H=H, W=W, K=self.num_components,
             variant=self._variant(),
@@ -127,6 +128,7 @@ class SlicModel:
             manhattan_spatial_dist=bool(self.manhattan_spatial_dist),
             float_color=bool(self.float_color),
             preemptive=bool(self.preemptive),
+            debug_mode=bool(self.debug_mode),
         )
 
     # -- pipeline entry points ----------------------------------------------
@@ -163,11 +165,28 @@ class SlicModel:
                 preemptive_thres=float(self.preemptive_thres),
             ),
             self.device,
+            profile=bool(self.profile),
         )
         self._clusters = res.clusters
         self.last_cca_tie = res.cca_tie
         self.last_timing_report = res.timing_json
+        self.last_recorder_snapshots = res.snapshots
+        self._recorder_report = None
         return res.labels
+
+    @property
+    def last_recorder_report(self) -> str:
+        """The debug recorder's JSON report of the last iterate ("" without
+        debug_mode), rendered from :attr:`last_recorder_snapshots` on the
+        first read."""
+        if self._recorder_report is None:
+            snaps = self.last_recorder_snapshots
+            self._recorder_report = "" if snaps is None else snaps.render()
+        return self._recorder_report
+
+    @last_recorder_report.setter
+    def last_recorder_report(self, report: str):
+        self._recorder_report = report
 
     # -- graph / density utilities (cfast_slic.pyx:262-324) ------------------
 

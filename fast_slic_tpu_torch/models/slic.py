@@ -1,7 +1,8 @@
 """User-facing SLIC classes with the reference constructor signature
 (``fast_slic/base_slic.py``) plus ``device``: ``Slic`` and the
 float-distance variants ``SlicRealDist``, ``SlicRealDistL2``,
-``SlicRealDistNoQ`` and ``LSC``.
+``SlicRealDistNoQ`` and ``LSC``, and the JAX package's aliases
+``SlicPallas`` and ``LSCPallas``.
 
 ``device="cuda"`` (the default) runs the hand-written CUDA kernels and
 raises when there is no GPU; ``device="cpu"`` runs the plain PyTorch path.
@@ -110,3 +111,12 @@ class SlicRealDistNoQ(SlicRealDist):
 class LSC(SlicRealDist):
     arch_name = 'standard'
     real_dist_type = 'lsc'
+
+
+# The JAX package's names for its Pallas arch; here the device decides.
+class SlicPallas(BaseSlic):
+    arch_name = 'pallas'
+
+
+class LSCPallas(LSC):
+    arch_name = 'pallas'

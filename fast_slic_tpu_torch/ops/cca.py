@@ -174,6 +174,17 @@ def enforce_connectivity_flagged(assignment, K: int, min_threshold: int):
     return lookup(comp_flat, substitute).reshape(H, W), boundary_tie
 
 
+def enforce_connectivity_exact(assignment, K: int, min_threshold: int):
+    """:func:`enforce_connectivity_flagged`, escalated on a tie to
+    :func:`selection_rerun_device`: the reference's labels exactly,
+    ``std::partial_sort`` ties included.  Returns (labels int32 [H, W],
+    whether the escalation ran)."""
+    labels, tie = enforce_connectivity_flagged(assignment, K, min_threshold)
+    if bool(tie):
+        return selection_rerun_device(assignment, K, min_threshold), True
+    return labels, False
+
+
 def framed_labels(assignment, K: int):
     """int32 [B, H, W] frame-local labels -> the int32 [B*H, W] stack that
     one connected-components launch takes: frame f's labels become f*K + k

@@ -25,6 +25,7 @@ the JAX package).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -35,7 +36,7 @@ from .cluster import Clusters
 from .config import (UNASSIGNED, VARIANT_LSC, VARIANT_REAL_NOQ,
                      VARIANT_STANDARD, StaticConfig)
 from .kernels.assign import assign
-from .kernels.assign_float import assign_float
+from .kernels.assign_float import F32_MAX, assign_float
 from .kernels.lab import rgb_to_lab_planar
 from .kernels.segsum import slic_update, slic_update_masked
 from .ops import lsc as lsc_ops
@@ -306,43 +307,76 @@ def assign_pass(planes, st: Clusters, cand, assignment, cfg: StaticConfig,
                         min_dists, feats, cent)
 
 
+def _no_scope(name):
+    return contextlib.nullcontext()
+
+
 def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
-               scalars: DerivedScalars, max_iter: int, stride: int):
+               scalars: DerivedScalars, max_iter: int, stride: int,
+               timer=None, recorder=None):
     """max_iter x (assign, update) with row subsampling and a rotating
     remainder (context.cpp:158-175); LSC re-centres its feature centroids
     after each update; the preemptive grid masks the update to its active
     cells and steps after it (fast_slic_tpu/pipeline.py:1035-1057).
     Returns (clusters, assignment, LSC centroids or None, candidate
-    overflow flag)."""
+    overflow flag).
+
+    ``timer`` (profile=True): a ``write_to_buffer`` section for the loop's
+    buffers, then one ``assign``, ``update`` and, for LSC, ``after_update``
+    section an iteration (fast_slic_tpu/pipeline.py:1258).  ``recorder``
+    (debug_mode; utils.recorder.Recorder): a snapshot (assignment,
+    min_dists, clusters) before the first iteration and after each one;
+    each pass's min_dists is a fresh fill that the assign writes on its
+    rows (fast_slic_tpu/pipeline.py:571-580, 1024-1073)."""
     feats, weights, cent = lsc_state
     dev = planes.device
-    assignment = torch.full(planes.shape[1:], UNASSIGNED, dtype=torch.int32,
-                            device=dev)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    pixel_mask = (torch.ones(planes.shape[1:], dtype=torch.bool, device=dev)
-                  if cfg.preemptive else None)
+    scope = _no_scope if timer is None else timer.scope
+    with scope("write_to_buffer"):
+        assignment = torch.full(planes.shape[1:], UNASSIGNED,
+                                dtype=torch.int32, device=dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        pixel_mask = (torch.ones(planes.shape[1:], dtype=torch.bool,
+                                 device=dev)
+                      if cfg.preemptive else None)
+    min_dists = None
+    if recorder is not None:
+        standard = cfg.variant == VARIANT_STANDARD
+        dist_fill = UNASSIGNED if standard else F32_MAX
+        dist_dtype = torch.int32 if standard else torch.float32
+        recorder.snap(-1, assignment,
+                      torch.full_like(assignment, dist_fill,
+                                      dtype=dist_dtype), st)
     for i in range(max_iter):
         rem = i % stride
-        st = _clamp_centers(st, cfg)
-        cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
-        overflow = overflow | cov
-        assign_pass(planes, st, cand, assignment, cfg, scalars, stride, rem,
-                    feats=feats, cent=cent)
+        with scope("assign"):
+            st = _clamp_centers(st, cfg)
+            cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
+            overflow = overflow | cov
+            if recorder is not None:
+                min_dists = torch.full_like(assignment, dist_fill,
+                                            dtype=dist_dtype)
+            assign_pass(planes, st, cand, assignment, cfg, scalars, stride,
+                        rem, min_dists, feats, cent)
         old_y, old_x = st.y, st.x  # set_old_clusters (context.cpp:303)
-        # per-cluster (count, i, j, L, a, b) over the rows just assigned
-        if cfg.preemptive:
-            acc = slic_update_masked(assignment, planes, pixel_mask, cfg.K,
-                                     stride, rem)
-        else:
-            acc = slic_update(assignment, planes, cfg.K, stride, rem)
-        acc = acc.reshape((6,) + tuple(st.y.shape))
-        st = update_apply_means_rows(acc[0], acc[1:], st, cfg)
+        with scope("update"):
+            # per-cluster (count, i, j, L, a, b) over the rows just assigned
+            if cfg.preemptive:
+                acc = slic_update_masked(assignment, planes, pixel_mask,
+                                         cfg.K, stride, rem)
+            else:
+                acc = slic_update(assignment, planes, cfg.K, stride, rem)
+            acc = acc.reshape((6,) + tuple(st.y.shape))
+            st = update_apply_means_rows(acc[0], acc[1:], st, cfg)
         if cfg.variant == VARIANT_LSC:
-            cent = lsc_ops.after_update(feats, weights, st, cent, cfg, rem,
-                                        stride, assignment, pixel_mask)
+            with scope("after_update"):
+                cent = lsc_ops.after_update(feats, weights, st, cent, cfg,
+                                            rem, stride, assignment,
+                                            pixel_mask)
         if cfg.preemptive:
             st, pixel_mask = _preemptive_step(st, old_y, old_x, cfg,
                                               scalars.l1_thres)
+        if recorder is not None:
+            recorder.snap(i, assignment, min_dists, st)
     return st, assignment, cent, overflow
 
 
@@ -373,16 +407,34 @@ def stage_cca(assignment, cfg: StaticConfig, scalars: DerivedScalars):
 
 def iterate_graph(image, st: Clusters, cfg: StaticConfig,
                   scalars: DerivedScalars, max_iter: int, stride: int,
-                  timer=None) -> IterateOut:
+                  timer=None, recorder=None) -> IterateOut:
     """The full iterate() pipeline on the device of ``image`` (uint8
     [H, W, 3] tensor; ``st`` holds tensors on the same device).  ``timer``
-    (utils.timing.Timer) gets one section per phase when given."""
+    (utils.timing.Timer) gets one section per phase when given;
+    ``recorder`` takes the loop's snapshots (debug_mode)."""
     timer = timer or Timer(None)
     with timer.scope("cielab_conversion"):
-        planes, st, lsc_state = stage_setup(image, st, cfg, scalars)
-    with timer.scope("iteration_loop"):
-        st, assignment, cent, overflow = stage_loop(
-            planes, st, lsc_state, cfg, scalars, max_iter, stride)
+        setup = stage_setup(image, st, cfg, scalars)
+    return iterate_from_setup(setup, cfg, scalars, max_iter, stride, timer,
+                              recorder=recorder)
+
+
+def iterate_from_setup(setup, cfg: StaticConfig, scalars: DerivedScalars,
+                       max_iter: int, stride: int, timer, profile=False,
+                       recorder=None) -> IterateOut:
+    """The pipeline after :func:`stage_setup` (its result ``setup``): an
+    ``iteration_loop`` section, or with ``profile`` the loop's own
+    sections (:func:`stage_loop`), then ``full_assign`` and
+    ``enforce_connectivity``."""
+    planes, st, lsc_state = setup
+    if profile:
+        loop = stage_loop(planes, st, lsc_state, cfg, scalars, max_iter,
+                          stride, timer, recorder)
+    else:
+        with timer.scope("iteration_loop"):
+            loop = stage_loop(planes, st, lsc_state, cfg, scalars, max_iter,
+                              stride, recorder=recorder)
+    st, assignment, cent, overflow = loop
     with timer.scope("full_assign"):
         st, assignment, min_dists, cov = stage_full_assign(
             planes, st, lsc_state, cent, assignment, cfg, scalars)

@@ -3,13 +3,14 @@
 The counterpart of ``fast_slic_tpu/runner.py:run_iterate``: moves the image
 and cluster state to the device, runs :func:`pipeline.iterate_graph`,
 re-runs with more candidate slots on overflow, escalates a CCA tie to the
-exact selection, and returns int16 labels with -1 for unassigned.
+exact selection, and returns int16 labels with -1 for unassigned, the
+timing report and, under ``debug_mode``, the recorder's snapshots.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from . import pipeline
 from .cluster import Clusters
 from .config import UNASSIGNED, RuntimeParams, StaticConfig
 from .ops.cca import selection_rerun_device
+from .utils.recorder import Recorder, Snapshots
 from .utils.timing import Timer
 
 
@@ -27,28 +29,60 @@ class RunResult(NamedTuple):
     timing_json: str         # utils.timing report, one section per phase
     cca_tie: bool            # the tie escalation ran
     cand_slots: int          # candidate slots of the run that was kept
+    snapshots: Optional[Snapshots] = None  # debug_mode: the recorder's
+
+    @property
+    def recorder_json(self) -> str:
+        """The debug recorder's JSON report ("" without debug_mode),
+        rendered from the snapshots on each read."""
+        return "" if self.snapshots is None else self.snapshots.render()
 
 
 def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
-                params: RuntimeParams, device) -> RunResult:
+                params: RuntimeParams, device, profile: bool = False
+                ) -> RunResult:
     """Execute iterate() on ``device``.
 
     If the pipeline flags candidate overflow (more than cand_slots clusters
     in a 3x3 cell neighbourhood), re-run at 3x the slots, capped at 48, at
-    most twice (fast_slic_tpu/runner.py:71-81)."""
+    most twice (fast_slic_tpu/runner.py:71-81); the snapshots are those of
+    the run that is kept.
+
+    The timing report (fast_slic_tpu/runner.py:46-66): by default
+    ``iterate`` holds ``write_to_buffer`` (the uploads), the pipeline's
+    phases and ``write_back``.  ``profile`` (without ``cfg.debug_mode``)
+    puts the phases under ``execute`` with one ``assign`` / ``update``
+    (/ ``after_update``) section an iteration; ``cfg.debug_mode`` puts
+    them under ``execute`` with the loop as one ``iteration_loop``
+    section, and adds ``recorder`` (the snapshots' copy to the host).  In
+    both, ``cielab_conversion`` takes the uploads."""
     device = torch.device(device)
     timer = Timer(device)
+    staged = profile or cfg.debug_mode
     with timer.scope("iterate"):
         scalars = pipeline.derive_scalars(cfg, params.compactness,
                                           params.min_size_factor,
                                           params.preemptive_thres)
-        with timer.scope("write_to_buffer"):
-            image_t = torch.from_numpy(np.ascontiguousarray(image)).to(device)
-            st = clusters.to_torch(device)
+        if not staged:
+            with timer.scope("write_to_buffer"):
+                image_t, st = _upload(image, clusters, device)
         for escalation in range(3):
-            out = pipeline.iterate_graph(image_t, st, cfg, scalars,
-                                         params.max_iter,
-                                         params.subsample_stride, timer)
+            recorder = Recorder() if cfg.debug_mode else None
+            if staged:
+                with timer.scope("execute"):
+                    with timer.scope("cielab_conversion"):
+                        image_t, st = _upload(image, clusters, device)
+                        setup = pipeline.stage_setup(image_t, st, cfg,
+                                                     scalars)
+                    out = pipeline.iterate_from_setup(
+                        setup, cfg, scalars, params.max_iter,
+                        params.subsample_stride, timer,
+                        profile=profile and not cfg.debug_mode,
+                        recorder=recorder)
+            else:
+                out = pipeline.iterate_graph(image_t, st, cfg, scalars,
+                                             params.max_iter,
+                                             params.subsample_stride, timer)
             if escalation == 2 or not bool(out.cand_overflow):
                 break
             cfg = dataclasses.replace(cfg,
@@ -67,4 +101,14 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
                 lab = out.labels
             labels = lab.cpu().numpy().astype(np.int16)
             final = out.clusters.as_numpy()
-    return RunResult(labels, final, timer.report(), tie, cfg.cand_slots)
+        snapshots = None
+        if recorder is not None:
+            with timer.scope("recorder"):
+                snapshots = recorder.to_host()
+    return RunResult(labels, final, timer.report(), tie, cfg.cand_slots,
+                     snapshots)
+
+
+def _upload(image, clusters: Clusters, device):
+    return (torch.from_numpy(np.ascontiguousarray(image)).to(device),
+            clusters.to_torch(device))

@@ -1129,3 +1129,155 @@ def test_crf_class_sum_on_gpu_adds_in_class_order(cuda, rng, shape):
         want = want + a[:, c:c + 1]
     _eq(_class_sum(a.to(cuda)), want)
     _eq(_class_sum(a), want)
+
+
+# short images: the rows i % stride == rem lie past the image when
+# rem >= H; (H, stride, rem)
+SHORT_ROWS = [(1, 3, 1), (1, 3, 2), (4, 7, 4), (4, 7, 6), (2, 3, 1),
+              (1, 3, 0)]
+
+
+@pytest.mark.parametrize("kernel", ["assign", "real", "lsc", "slic_update",
+                                    "slic_update_masked"])
+@pytest.mark.parametrize("H,stride,rem", SHORT_ROWS)
+def test_short_rows_kernels_match_plain(cuda, rng, kernel, H, stride, rem):
+    """At rem >= H the launcher skips: the assignment and min_dists stay as
+    they were and the update's sums are all zero, as in the plain
+    version; at H < stride with rem < H one row is processed."""
+    W, K = 61, 5
+    _, st, planes = _state(rng, cuda, H, W, K)
+    old = torch.from_numpy(rng.integers(0, K, size=(H, W)).astype(
+        np.int32)).to(cuda)
+    if kernel.startswith("slic_update"):
+        mask = torch.from_numpy(rng.random((H, W)) < 0.7).to(cuda)
+        if kernel == "slic_update":
+            got = segsum.slic_update(old, planes, K, stride, rem)
+            want = segsum.slic_update_plain(old, planes, K, stride, rem)
+        else:
+            got = segsum.slic_update_masked(old, planes, mask, K, stride, rem)
+            want = segsum.slic_update_masked_plain(old, planes, mask, K,
+                                                   stride, rem)
+        _eq(got, want)
+        assert bool((got == 0).all()) == (rem >= H)
+        return
+    variant = "standard" if kernel == "assign" else kernel
+    cfg = StaticConfig(H=H, W=W, K=K, variant=variant)
+    coef = pipeline.derive_scalars(cfg, 10.0, 0.25).coef
+    cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+    table = pipeline.center_table(st)
+    feats = torch.from_numpy(rng.random((10, H, W), np.float32)).to(cuda)
+    cent = torch.from_numpy(rng.random((K, 10), np.float32)).to(cuda)
+    outs = []
+    for on_card in (True, False):
+        a = old.clone()
+        if kernel == "assign":
+            md = torch.full_like(a, UNASSIGNED)
+            fn = assign.assign if on_card else assign.plain
+            fn(planes, table, cand, a, coef, cfg.S, stride, rem,
+               min_dists=md)
+        else:
+            md = torch.full((H, W), -1.0, device=cuda)
+            fn = assign_float.assign_float if on_card else assign_float.plain
+            fn(planes, table, cand, a, coef, cfg.S, stride, rem, variant,
+               True, md, feats, cent)
+        outs.append((a, md))
+    _eq(outs[0][0], outs[1][0])
+    _eq(outs[0][1], outs[1][1])
+    if rem >= H:
+        _eq(outs[0][0], old)
+        assert bool((outs[0][1] == outs[0][1].flatten()[0]).all())
+
+
+@pytest.mark.parametrize("shape,stride", [((1, 50), 3), ((4, 60), 7)])
+@pytest.mark.parametrize("cls", [SlicAvx2, SlicRealDist, LSCAvx2])
+def test_short_images_on_gpu_match_cpu(cuda, rng, cls, shape, stride):
+    image = rng.integers(0, 256, size=shape + (3,)).astype(np.uint8)
+    kw = dict(num_components=4, subsample_stride=stride)
+    gpu, cpu = cls(device=cuda, **kw), cls(device="cpu", **kw)
+    np.testing.assert_array_equal(gpu.iterate(image, max_iter=7),
+                                  cpu.iterate(image, max_iter=7))
+
+
+@pytest.mark.parametrize("cls,kw", [(SlicAvx2, {}), (SlicRealDist, {}),
+                                    (LSCAvx2, {}),
+                                    (SlicAvx2, {"preemptive": True})])
+def test_debug_snapshots_on_gpu_match_cpu(cuda, rng, cls, kw):
+    """debug_mode on the card: every snapshot's assignment, min_dists and
+    clusters equal the plain path's (LSC: assignments >= 0.999, the rest
+    within rtol 1e-5), and the labels equal the default run's."""
+    frame = _frames(rng, 1)[0]
+    kw = dict(num_components=150, **kw)
+    runs = {}
+    for dev in (cuda, "cpu"):
+        slic = cls(device=dev, debug_mode=True, **kw)
+        runs[str(dev)] = (slic.iterate(frame, max_iter=4),
+                          slic.slic_model.last_recorder_snapshots)
+    ref = cls(device=cuda, **kw).iterate(frame, max_iter=4)
+    (lg, sg), (lc, sc) = runs[str(cuda)], runs["cpu"]
+    np.testing.assert_array_equal(lg, ref)
+    assert sg.iterations == sc.iterations == [-1, 0, 1, 2, 3]
+    lsc = cls is LSCAvx2
+    if lsc:
+        agree = (sg.assignments == sc.assignments).mean(axis=(1, 2))
+        assert (agree >= 0.999).all(), agree
+        np.testing.assert_allclose(sg.min_dists, sc.min_dists, rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        np.testing.assert_array_equal(lg, lc)
+        np.testing.assert_array_equal(sg.assignments, sc.assignments)
+        np.testing.assert_array_equal(sg.min_dists, sc.min_dists)
+    for a, b in zip(sg.clusters, sc.clusters):
+        for f, x, y in zip(("y", "x", "r", "g", "b", "num_members",
+                            "is_active", "is_updatable"),
+                           a.fields(), b.fields()):
+            if lsc:
+                np.testing.assert_allclose(x.astype(np.float64),
+                                           y.astype(np.float64), rtol=1e-5,
+                                           err_msg=f)
+            else:
+                np.testing.assert_array_equal(x, y, err_msg=f)
+
+
+@pytest.mark.parametrize("cls", [SlicAvx2, LSCAvx2])
+def test_profile_on_gpu(cuda, rng, cls):
+    import json
+    frame = _frames(rng, 1)[0]
+    ref = cls(num_components=150, device=cuda).iterate(frame, max_iter=4)
+    slic = cls(num_components=150, device=cuda)
+    slic.slic_model.profile = True
+    np.testing.assert_array_equal(slic.iterate(frame, max_iter=4), ref)
+    rep = json.loads(slic.slic_model.last_timing_report)
+    exe = [c for c in rep["children"] if c["name"] == "execute"][0]
+    names = [c["name"] for c in exe["children"]]
+    assert names.count("assign") == names.count("update") == 4
+    assert names.count("after_update") == (4 if cls is LSCAvx2 else 0)
+    assert all(isinstance(c["duration"], int) for c in exe["children"])
+
+
+def _tied_map():
+    blocks = np.random.default_rng(1).integers(0, 4, size=(6, 8))
+    return np.kron(blocks, np.ones((4, 4))).astype(np.uint16), 0
+
+
+@pytest.mark.parametrize("case", ["random", "unassigned", "tied",
+                                  "superpixels_720p"])
+def test_enforce_connectivity_on_gpu_matches_cpu(cuda, rng, case):
+    from fast_slic_tpu_torch import enforce_connectivity
+    from fast_slic_tpu_torch.ops.cca import enforce_connectivity_flagged
+    if case == "tied":
+        labels, thres = _tied_map()
+        _, tie = enforce_connectivity_flagged(
+            torch.from_numpy(labels.astype(np.int32)).to(cuda), 4, thres)
+        assert bool(tie)
+    elif case == "superpixels_720p":
+        a, _ = _superpixels(rng, 1, 720, 1280)
+        labels, thres = a[0].astype(np.int16), 144   # 0xFFFF reads -1
+    else:
+        labels = rng.integers(0, 6, size=(97, 131)).astype(np.int16)
+        if case == "unassigned":
+            labels[labels == 5] = -1
+        thres = 3
+    got = enforce_connectivity(labels.copy(), thres)
+    want = enforce_connectivity(labels.copy(), thres, device="cpu")
+    assert got.dtype == labels.dtype
+    np.testing.assert_array_equal(got, want)

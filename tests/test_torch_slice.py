@@ -181,14 +181,27 @@ def test_constructor_contracts():
         StaticConfig(H=8, W=8, K=4, variant="bogus")
 
 
-def test_paths_outside_the_slice_raise(image_factory):
+@pytest.mark.parametrize("attr", ["debug_mode", "profile"])
+def test_debug_and_profile_run(image_factory, attr):
+    """Both were outside the slice until the rest of the API was ported:
+    each now runs and gives the default run's labels."""
     image = image_factory(32, 32)
-    for attr in ("debug_mode", "profile"):
-        m = SlicModel(4, device="cpu")
-        m.initialize(image)
-        setattr(m, attr, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.iterate(image, 2, 10, 0.25, 3)
+    ref = SlicModel(4, device="cpu")
+    ref.initialize(image)
+    m = SlicModel(4, device="cpu")
+    m.initialize(image)
+    setattr(m, attr, True)
+    np.testing.assert_array_equal(m.iterate(image, 2, 10, 0.25, 3),
+                                  ref.iterate(image, 2, 10, 0.25, 3))
+    assert bool(m.last_recorder_report) == (attr == "debug_mode")
+
+
+def test_paths_outside_the_slice_raise(image_factory):
+    from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+    image = image_factory(32, 32)
+    # multi-device meshes are the one module left to port
+    with pytest.raises(NotImplementedError, match="1.13"):
+        BatchedSlic(num_components=4, mesh=object(), device="cpu")
     m = SlicModel(4, device="cpu")
     # the graph utilities are ported: one label has no neighbours
     conn = m.get_connectivity(np.zeros((4, 4), np.int16))
