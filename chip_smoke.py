@@ -3,14 +3,18 @@
 them: the standard main path, the float-distance path (the real variants
 and LSC), the preemptive grid, batched frames (BatchedSlic), the CRF
 refinement (the graph utilities and SimpleCRF) and the rest of the public
-API (the debug recorder, profile=True and enforce_connectivity).
+API (the debug recorder, profile=True and enforce_connectivity) and the
+device mesh (one image's rows over four shards of the card, a batch over a
+mesh's data axis).
 
     python3 chip_smoke.py            # from the repository root, on a GPU
     python3 chip_smoke.py --profile  # also: torch.profiler over one frame
                                      # of the standard, the LSC and the
                                      # preemptive path, one stacked
                                      # batch of four frames, one frame's
-                                     # CRF graphs and one CRF cycle
+                                     # CRF graphs, one CRF cycle and one
+                                     # 4K frame of SlicAvx2 and of
+                                     # ShardedSlicExplicit over 4 shards
 
 Phases (any failure exits non-zero; no phase's error is caught):
 
@@ -27,7 +31,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    the LSC float assign on the four frames' LSC states stacked), the
    masked update with that pixel mask at B=4 and B=1, and the components
    and the per-frame segment sum on the four frames' stacked CCA map; the
-   f32 segment sum again under frame 0's preemptive mask; the KNN on the
+   f32 segment sum again under frame 0's preemptive mask; the region
+   minimum (propagate_min) on frame 0's raw assignment with pixel-id,
+   leader-rank and _BIG-but-at-leaders seeds (and, in the mesh phase, at
+   the mesh path's own slabs and seeds); the KNN on the
    clusters of the JAX package's first 720p frame at m = 4, 1, 8 and 60,
    and its bucketing by cell);
    bit-exact (the f32 segment sum against its plain version on the CPU,
@@ -76,7 +83,23 @@ Phases (any failure exits non-zero; no phase's error is caught):
    summed); the standalone enforce_connectivity on frames 0-2's raw
    pre-CCA assignments at the pipeline's threshold (frames 1-2 tie)
    equals the frames' labels, the JAX package's and the plain path;
-10. golden: the seven standard and the three real-distance golden cases
+10. mesh: ShardedSlicExplicit(num_components=14400) over
+   make_mesh(data=1, space=4, devices=[cuda:0] * 4) on two 3840x2160
+   frames, labels and cluster state equal to SlicAvx2 carrying its own;
+   at 1920x1080, K=1600 over the same four shards one frame each of the
+   real, real_l2, real_noq and preemptive variants (equal to their
+   single-device classes), LSC (agreement >= 0.99) and ShardedSlic;
+   BatchedSlic over data=2, space=2 on the first batch in stack and map
+   mode equal to no mesh (labels, state, tie flags); the JAX package's
+   sharded classes (tests/data/port_mesh_ref.npz) on eight shards of the
+   card; ms a frame (CUDA events and host clock), launches, tie
+   escalations, seam-fixpoint rounds and bytes between shards for each
+   sharded frame and its single-device run; and the path's own
+   connected_components and propagate_min calls on one 4K frame (slabs of
+   540x3840) and one 1080p frame (270x1920), each held bit for bit against
+   its plain version on the same inputs, the 4K slab giving propagate_min's
+   JSON row;
+11. golden: the seven standard and the three real-distance golden cases
    agree 1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -110,6 +133,13 @@ CRF_C, CRF_KNN, CRF_ITERS = 21, 4, 5
 # the JAX package's graphs, densities and posteriors on the slice frames
 # (scripts/make_port_fixture_crf.py)
 CRF_FIXTURE = os.path.join(ROOT, "tests", "data", "port_crf_ref.npz")
+# the mesh phase: 4K over four shards of the card (S=24, as at 720p: 540
+# rows a slab), and BASELINE.md's 1080p for the variants (270 rows a slab)
+H4K, W4K, K4K = 2160, 3840, 14400
+H1080, W1080 = 1080, 1920
+# the JAX package's sharded classes on 8 CPU shards
+# (scripts/make_port_fixture_mesh.py)
+MESH_FIXTURE = os.path.join(ROOT, "tests", "data", "port_mesh_ref.npz")
 
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory, and float32
 # outside the tensor cores (the integer ops of these kernels are counted at the
@@ -147,6 +177,13 @@ PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
 BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
               "connected_components", "lookup", "resolve_orphans")
+# the mesh path: four shards of one card at 4K (the standard variant), and
+# at 1080p each variant and the preemptive grid
+MESH_PATH = ("lab", "assign", "slic_update", "propagate_min",
+             "connected_components", "segment_sum", "lookup",
+             "resolve_orphans")
+MESH_VARIANT_PATH = ("assign_float", "lsc_feat", "fsegsum",
+                     "slic_update_masked", "propagate_min")
 # the CRF path: the standard path's kernels, then the graph utilities
 CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
 # the api phase: debug and profiled frames of SlicAvx2, LSCAvx2 and the
@@ -160,13 +197,14 @@ PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
                   "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
-                  "segment_sum_kernel", "knn_kernel", "knn_buckets_kernel")
+                  "segment_sum_kernel", "knn_kernel", "knn_buckets_kernel",
+                  "pm_scatter", "pm_gather")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
     + [(k, "float") for k in ("lsc_feat", "assign_float", "fsegsum")]
     + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch"),
-       ("knn", "crf"), ("knn_buckets", "crf")])
+       ("knn", "crf"), ("knn_buckets", "crf"), ("propagate_min", "mesh")])
 
 
 class SmokeFailure(RuntimeError):
@@ -512,7 +550,41 @@ def kernel_phase(dev, frame, K: int, res: Results):
                  (2, n + 1), dtype=torch.int32, device=dev).index_add_(
                      1, ids_long, vals))
     log("kernel phase: raw assignment has %d components" % int(ncomp))
+    propagate_min_check(dev, raw, res)
     return float_kernel_phase(dev, image, K, res)
+
+
+def propagate_min_check(dev, raw, res: Results):
+    """The region minimum against its plain version, bit for bit, on a raw
+    assignment with the sharded CCA's three seeds: pixel ids, leader ranks
+    (every pixel's exclusive leader count) and _BIG except at the leaders;
+    the kernel over the components kernel's roots, the plain version over
+    connected_components_plain's.  Its JSON row is timed in the mesh
+    phase, at the mesh path's slabs (propagate_min_on_slabs)."""
+    import torch
+    from fast_slic_tpu_torch.kernels import cca
+    from fast_slic_tpu_torch.ops.cca import leader_ranks
+
+    H, W = raw.shape
+    n = H * W
+    roots = cca.connected_components(raw)
+    plain_roots = cca.connected_components_plain(raw)
+    is_leader, rank, _ = leader_ranks(roots.reshape(-1))
+    seeds = {"pixel ids": torch.arange(n, dtype=torch.int32, device=dev),
+             "leader ranks": rank,
+             "_BIG but at leaders": torch.where(is_leader, rank, 0x7FFFFFFF)}
+    for what, m0 in seeds.items():
+        m0 = m0.reshape(H, W).contiguous()
+        want = cca.propagate_min_plain(m0, plain_roots)
+        res.check("propagate_min", max_abs_err(cca.propagate_min(m0, roots),
+                                               want))
+        log("kernel phase: propagate_min with the %s seed equals its plain "
+            "version (%d distinct minima)" % (what, int(torch.unique(
+                want).numel())))
+    m0 = rank.reshape(H, W).contiguous()
+    log_times("propagate_min %dx%d" % (W, H),
+              lambda: cca.propagate_min(m0, roots),
+              lambda: cca.propagate_min_plain(m0, roots), 12 * n, 2 * n)
 
 
 def float_kernel_phase(dev, image, K: int, res: Results):
@@ -1449,6 +1521,234 @@ def api_phase(dev, frames, K: int):
     return counts
 
 
+def mesh_frames(H: int, W: int, K: int, sharded, single, frames, tag: str):
+    """``sharded`` (a ShardedSlicExplicit or ShardedSlic) and ``single``
+    (its single-device class on the card) over the frames, each carrying its
+    state: labels and the cluster state equal frame by frame (LSC: labels
+    agree >= 0.99).  Logs ms a frame (CUDA events, host clock), launches
+    a frame, tie escalations, seam-fixpoint rounds and bytes copied
+    between shards.  Returns the sharded run's launch counts."""
+    from fast_slic_tpu_torch.kernels import launch_counts, reset_launches
+    lsc = sharded.variant == "lsc"
+    rows = []
+    reset_launches()
+    for f in frames:
+        moved = sharded.mesh.bytes_moved
+        before = sum(launch_counts().values())
+        lab, ev_ms, host_ms = timed_call(lambda: sharded.iterate(f))
+        rows.append((lab, sharded.state, ev_ms, host_ms,
+                     "%s, %d re-runs" % (sharded.last_tie,
+                                         sharded.last_reruns),
+                     list(sharded.last_seam_rounds),
+                     sum(launch_counts().values()) - before,
+                     sharded.mesh.bytes_moved - moved))
+    counts = launch_counts()
+    for t, (f, (lab, st, ev_ms, host_ms, tie, rounds, launches,
+                moved)) in enumerate(zip(frames, rows)):
+        before = sum(launch_counts().values())
+        ref, ref_ev, ref_host = timed_call(lambda: single.iterate(f))
+        ref_launches = sum(launch_counts().values()) - before
+        agree = float((lab == ref).mean())
+        log("mesh %s %dx%d K=%d frame %d: sharded %.3f ms (CUDA events), "
+            "%.3f ms (host clock), %d kernel launches, tie escalation %s, "
+            "seam rounds %s, %d bytes between shards; single device %.3f "
+            "ms, %.3f ms, %d kernel launches, tie escalation %s; label "
+            "agreement %r"
+            % (tag, W, H, K, t + 1, ev_ms, host_ms, launches, tie, rounds,
+               moved, ref_ev, ref_host, ref_launches,
+               single.slic_model.last_cca_tie, agree))
+        require(lab.shape == (H, W) and lab.dtype == np.int16
+                and lab.min() >= 0 and lab.max() < K,
+                "mesh %s frame %d: labels shape or range" % (tag, t))
+        if lsc:
+            require(agree >= 0.99, "mesh %s frame %d: LSC agreement %r"
+                    % (tag, t, agree))
+            continue
+        require(agree == 1.0 and states_equal(
+                    st, single.slic_model._clusters),
+                "mesh %s frame %d: labels or state differ from the single "
+                "device" % (tag, t))
+    return counts
+
+
+def propagate_min_on_slabs(mesh, frame, K: int, res: Results, tag: str,
+                           time_row: bool):
+    """propagate_min at the mesh path's own shapes and inputs: one frame
+    through a fresh ShardedSlicExplicit with the shard step's
+    connected_components and propagate_min wrapped to keep each call's
+    inputs and result (spatial_shardmap looks both names up at call time).
+    Each slab's roots equal connected_components_plain's, and each region
+    minimum the plain version's on the same seed and roots, bit for bit.
+    ``time_row``: time the JSON row on the first leader-rank call on slab
+    1 (the second propagation's first round), 12 bytes a pixel moved."""
+    from fast_slic_tpu_torch.kernels import cca
+    from fast_slic_tpu_torch.parallel import spatial_shardmap as ssm
+
+    comps, calls = [], []
+
+    def components(labels):
+        out = cca.connected_components(labels)
+        comps.append((labels.clone(), out.clone()))
+        return out
+
+    def region_min(m0, roots):
+        out = cca.propagate_min(m0, roots)
+        calls.append((m0.clone(), roots, out.clone()))
+        return out
+
+    sharded = ssm.ShardedSlicExplicit(num_components=K, mesh=mesh)
+    ssm.connected_components, ssm.propagate_min = components, region_min
+    try:
+        sharded.iterate(frame)
+    finally:
+        ssm.connected_components = cca.connected_components
+        ssm.propagate_min = cca.propagate_min
+    D = mesh.shape["space"]
+    Hl, W = frame.shape[0] // D, frame.shape[1]
+    # a candidate overflow re-runs the frame: the last run's calls are
+    # the seam rounds' (last_seam_rounds)
+    rounds = sharded.last_seam_rounds
+    runs = sharded.last_reruns + 1
+    last = calls[len(calls) - D * sum(rounds):]
+    require(len(comps) == D * runs and len(last) == D * sum(rounds)
+            and all(m0.shape == (Hl, W) for m0, _, _ in calls),
+            "mesh %s: %d components and %d region-minimum calls in %d runs "
+            "for seam rounds %s" % (tag, len(comps), len(calls), runs,
+                                    rounds))
+    for labels, roots in comps:
+        res.check("connected_components", max_abs_err(
+            roots, cca.connected_components_plain(labels)))
+    for m0, roots, out in calls:
+        res.check("propagate_min", max_abs_err(
+            out, cca.propagate_min_plain(m0, roots)))
+    log("mesh %s: the path's %d connected_components and %d propagate_min "
+        "calls on %dx%d slabs (seam rounds %s) equal their plain versions"
+        % (tag, len(comps), len(calls), W, Hl, rounds))
+    if time_row:
+        m0, roots, _ = last[rounds[0] * D + 1]
+        n = m0.numel()
+        res.time("propagate_min", lambda: cca.propagate_min(m0, roots),
+                 lambda: cca.propagate_min_plain(m0, roots), 12 * n, 2 * n)
+
+
+def mesh_phase(dev, batch, res: Results):
+    """The mesh path (phase 10): ShardedSlicExplicit over four shards of
+    one card at 3840x2160, K=14400, two frames, against SlicAvx2; the
+    variants and ShardedSlic over four shards at 1920x1080, K=1600; a
+    BatchedSlic batch over data=2, space=2 against no mesh; the JAX
+    package's sharded classes (tests/data/port_mesh_ref.npz) on eight
+    shards; and the path's own CCA kernel calls on one 4K and one 1080p
+    frame against their plain versions (propagate_min_on_slabs), the 4K
+    slab timing propagate_min's row.  Returns (launch counts of the 4K
+    run, of the 1080p runs)."""
+    import torch
+    from fast_slic_tpu_torch import (LSCAvx2, SlicAvx2, SlicRealDist,
+                                     SlicRealDistL2, SlicRealDistNoQ)
+    from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+    from fast_slic_tpu_torch.parallel.mesh import make_mesh
+    from fast_slic_tpu_torch.parallel.spatial import ShardedSlic
+    from fast_slic_tpu_torch.parallel.spatial_shardmap import (
+        ShardedSlicExplicit)
+
+    t0 = time.perf_counter()
+    mesh4 = make_mesh(data=1, space=4, devices=[dev] * 4)
+    log("mesh: %r; torch.cuda.device_count() %d"
+        % (mesh4, torch.cuda.device_count()))
+    frames = make_frames(2, H4K, W4K)
+    counts = mesh_frames(
+        H4K, W4K, K4K,
+        ShardedSlicExplicit(num_components=K4K, mesh=mesh4),
+        SlicAvx2(num_components=K4K, device=dev), frames, "4K")
+    log("mesh: 4K launches %s" % json.dumps(counts))
+    propagate_min_on_slabs(mesh4, frames[0], K4K, res, "4K", True)
+
+    f1080 = make_frames(1, H1080, W1080)
+    variant_counts = {}
+    for name, variant, cls, kw in (
+            ("real", "real", SlicRealDist, {}),
+            ("real_l2", "real_l2", SlicRealDistL2, {}),
+            ("real_noq", "real_noq", SlicRealDistNoQ, {}),
+            ("preemptive", "standard", SlicAvx2, {"preemptive": True}),
+            ("lsc", "lsc", LSCAvx2, {})):
+        c = mesh_frames(H1080, W1080, K720, ShardedSlicExplicit(
+            num_components=K720, variant=variant, mesh=mesh4, **kw),
+            cls(num_components=K720, device=dev, **kw), f1080, name)
+        for k, v in c.items():
+            variant_counts[k] = variant_counts.get(k, 0) + v
+    mesh_frames(H1080, W1080, K720,
+                ShardedSlic(num_components=K720, mesh=mesh4),
+                SlicAvx2(num_components=K720, device=dev), f1080,
+                "ShardedSlic")
+    propagate_min_on_slabs(mesh4, f1080[0], K720, res, "1080p", False)
+
+    mesh22 = make_mesh(data=2, space=2, devices=[dev] * 4)
+    for mode in ("stack", "map"):
+        meshed = BatchedSlic(num_components=K720, batch_mode=mode,
+                             mesh=mesh22)
+        plain = BatchedSlic(num_components=K720, batch_mode=mode, device=dev)
+        got, ev_ms, host_ms = timed_call(lambda: meshed.iterate(batch))
+        want, ref_ev, ref_host = timed_call(lambda: plain.iterate(batch))
+        require(torch.equal(got, want) and states_equal(meshed.state,
+                                                        plain.state)
+                and torch.equal(meshed.last_flags, plain.last_flags),
+                "mesh BatchedSlic %s: labels, state or flags differ from "
+                "no mesh" % mode)
+        log("mesh BatchedSlic %s B=%d over data=2, space=2: %.3f ms (CUDA "
+            "events), %.3f ms (host clock); without a mesh %.3f ms, %.3f "
+            "ms; labels, state and tie flags %s equal"
+            % (mode, len(batch), ev_ms, host_ms, ref_ev, ref_host,
+               meshed.last_flags.tolist()))
+
+    mesh_fixture(dev)
+    log("mesh phase: %.1f s" % (time.perf_counter() - t0))
+    return counts, variant_counts
+
+
+def mesh_fixture(dev):
+    """The JAX package's ShardedSlicExplicit (each variant, preemptive, a
+    warm start), ShardedSlic and BatchedSlic(mesh=data 4, space 2) arrays
+    (MESH_FIXTURE) against the port on eight shards of the card."""
+    from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+    from fast_slic_tpu_torch.parallel.mesh import make_mesh
+    from fast_slic_tpu_torch.parallel.spatial import ShardedSlic
+    from fast_slic_tpu_torch.parallel.spatial_shardmap import (
+        ShardedSlicExplicit)
+
+    ref = np.load(MESH_FIXTURE)
+    mesh8 = make_mesh(data=1, space=8, devices=[dev] * 8)
+    kw = dict(num_components=9, min_size_factor=0.1)
+    fields = ("y", "x", "r", "g", "b", "num_members", "is_active",
+              "is_updatable")
+
+    def same(name, labels, st, lsc=False):
+        agree = float((np.asarray(labels) == ref[name + "_labels"]).mean())
+        state = all(np.array_equal(getattr(st, f), ref[name + "_" + f])
+                    for f in fields)
+        log("mesh fixture %s: label agreement with the JAX package %r, "
+            "state equal %s" % (name, agree, state))
+        require(agree >= 0.99 if lsc else (agree == 1.0 and state),
+                "mesh fixture %s differs from the JAX package's" % name)
+
+    image = ref["image"]
+    for v in ("standard", "real", "real_l2", "real_noq", "lsc"):
+        sh = ShardedSlicExplicit(variant=v, mesh=mesh8, **kw)
+        same("x_" + v, sh.iterate(image, 3), sh.state, v == "lsc")
+    sh = ShardedSlicExplicit(preemptive=True, mesh=mesh8, **kw)
+    same("x_preemptive", sh.iterate(image, 4), sh.state)
+    sh = ShardedSlicExplicit(mesh=mesh8, **kw)
+    same("warm1", sh.iterate(image, 2), sh.state)
+    same("warm2", sh.iterate(image, 2), sh.state)
+    for name, extra in (("s_standard", {}),
+                        ("s_preemptive", {"preemptive": True})):
+        sh = ShardedSlic(mesh=mesh8, **kw, **extra)
+        same(name, sh.iterate(image, 3), sh.state)
+    for mode in ("map", "stack"):
+        bs = BatchedSlic(mesh=make_mesh(data=4, space=2, devices=[dev] * 8),
+                         batch_mode=mode, **kw)
+        same("b_" + mode, bs.iterate(ref["frames"], 3).cpu().numpy(),
+             bs.state)
+
+
 def golden_phase(dev):
     from fast_slic_tpu_torch import cluster as cl, runner
     from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
@@ -1572,7 +1872,6 @@ def main() -> int:
     fseg = kernel_phase(dev, frames[0], K720, res)
     frame_kernel_phase(dev, list(batches[0]), K720, res, fseg)
     knn_kernel_phase(dev, res)
-    res.log()
 
     counts = {}
     counts["standard"], ms, dev_ms, ties, report = slice_phase(dev, frames,
@@ -1597,10 +1896,14 @@ def main() -> int:
     counts["batch"] = batch_phase(dev, batches, K720)
     counts["crf"] = crf_phase(dev, frames, K720)
     counts["api"] = api_phase(dev, frames, K720)
+    counts["mesh"], counts["mesh variants"] = mesh_phase(dev, batches[0],
+                                                         res)
+    res.log()
     for path, need in (("standard", STANDARD_PATH), ("float", FLOAT_PATH),
                        ("preemptive", PREEMPTIVE_PATH),
                        ("batch", BATCH_PATH), ("crf", CRF_PATH),
-                       ("api", API_PATH)):
+                       ("api", API_PATH), ("mesh", MESH_PATH),
+                       ("mesh variants", MESH_VARIANT_PATH)):
         log("slice: %s path launches %s" % (path, json.dumps(counts[path])))
         missing = [k for k in need if counts[path][k] <= 0]
         require(not missing, "kernels never launched on the %s path: %s"
@@ -1623,6 +1926,17 @@ def main() -> int:
                       lambda: bs.iterate(batches[0]),
                       lambda: bs.iterate(batches[1]), frames=BATCH)
         profile_crf(dev, frames)
+        from fast_slic_tpu_torch.parallel.mesh import make_mesh
+        from fast_slic_tpu_torch.parallel.spatial_shardmap import (
+            ShardedSlicExplicit)
+        big = make_frames(2, H4K, W4K)
+        for name, slic in (
+                ("SlicAvx2 4K", SlicAvx2(num_components=K4K, device=dev)),
+                ("ShardedSlicExplicit 4K space=4", ShardedSlicExplicit(
+                    num_components=K4K, mesh=make_mesh(
+                        data=1, space=4, devices=[dev] * 4)))):
+            profile_phase(name, lambda: slic.iterate(big[0]),
+                          lambda: slic.iterate(big[1]))
     require("jax" not in sys.modules, "the port imported jax")
 
     rows = []

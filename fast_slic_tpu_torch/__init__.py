@@ -23,9 +23,11 @@ per-iteration timing report (``slic_model.profile = True``), the standalone
 the graph and density utilities (``SlicModel.get_connectivity``,
 ``get_knn_connectivity``, ``get_mask_density``,
 ``broadcast_density_to_mask``; the KNN is a CUDA kernel on the card) and
-the temporal mean-field CRF (``SimpleCRF``, ``device="cuda"`` by default).
-Multi-device meshes (``BatchedSlic(mesh=...)``) raise NotImplementedError
-naming their ROADMAP.md item.
+the temporal mean-field CRF (``SimpleCRF``, ``device="cuda"`` by default)
+and device meshes (``parallel.mesh.make_mesh``; a batch over the mesh's
+``data`` axis with ``BatchedSlic(mesh=...)``, one image's rows over its
+``space`` axis with ``parallel.spatial_shardmap.ShardedSlicExplicit`` and
+``parallel.spatial.ShardedSlic``; the shards may share one card).
 """
 
 from .models.slic import (  # noqa: F401

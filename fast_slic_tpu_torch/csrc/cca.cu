@@ -25,6 +25,21 @@
 // decreases and stays inside the region), so the root is that minimum and
 // the labelling is unique whatever order the atomics land in.
 
+// fstt_propagate_min replaces the general use of the same TPU kernel,
+// propagate_min_pallas (cca_tpu.py:349): the minimum of an int32 seed m0 over
+// each 4-connected equal-label region, which a spatially sharded CCA needs
+// for three seeds (global pixel ids, leader ranks, substitutes).  The TPU
+// spread the seed itself, strip by strip; here the region is known first
+// and the seed follows it in two passes.  The caller passes the regions'
+// roots: fstt_cc above gives every pixel its region's minimum pixel, found
+// once for all the seeds and rounds that share the labels.
+//   pm_scatter  out = m0 (a device copy), then one thread a pixel takes
+//               atomicMin(out[root], m0[p]) where m0[p] is below the slot
+//               it reads: the root's slot ends holding the region's
+//               minimum, whatever order the atomics land in;
+//   pm_gather   out[p] = out[root[p]].  In place: a root's slot is the only
+//               one read, and its own thread writes it the value it holds.
+//
 // fstt_lookup replaces fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel
 // (pallas_call in banded_lookup_pallas), which emulated a gather with banded
 // one-hot matmuls: out[i] = table[ids[i]] is a plain gather here.
@@ -53,6 +68,12 @@
 // (1-4 for a superpixel), and only 1/16 of the pixels (the seams) take
 // part.  Parents in device memory are read through volatile loads, so a
 // thread never follows a stale L1 copy of a chain another SM has relinked.
+//
+// The region minimum with the roots given must move 12 bytes a pixel (the
+// roots and the seed read, the result written); its copy, scatter and
+// gather move 28.  The scatter's atomics all land on a region's one slot,
+// so it reads the slot first and skips the atomic where the seed cannot
+// lower it, which is most pixels after the first round of a seam fixpoint.
 //
 // The lookup is bound by device memory (8 bytes read and 4
 // written a pixel): each thread moves four ids and four results as 16-byte
@@ -295,6 +316,26 @@ __global__ void resolve_orphans_kernel(const int32_t* __restrict__ substitute,
     out[i] = s == UNASSIGNED ? 0 : s;
 }
 
+__global__ void pm_scatter(const int32_t* __restrict__ roots,
+                           const int32_t* __restrict__ m0, int32_t* out,
+                           int n) {
+    int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= n) return;
+    const int r = roots[p];
+    if (r == p) return;
+    // the slot only decreases, so a pixel whose seed is not below what it
+    // reads (a stale value is larger) has nothing to add: most pixels of a
+    // region skip the atomic on one contended address
+    const int v = m0[p];
+    if (v < *(volatile const int32_t*)(out + r)) atomicMin(out + r, v);
+}
+
+__global__ void pm_gather(const int32_t* __restrict__ roots, int32_t* out,
+                          int n) {
+    int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p < n) out[p] = out[roots[p]];
+}
+
 int sm_count() {
     static int count = 0;
     if (count == 0) {
@@ -327,6 +368,24 @@ extern "C" int fstt_cc(const void* labels, void* out, int H, int W,
             cc_flatten<<<(n + threads - 1) / threads, threads, 0, s>>>(
                 (int32_t*)out, n);
         }
+    }
+    return (int)cudaGetLastError();
+}
+
+// m0: int32 [n] seed; roots: int32 [n], the components of the labels
+// (fstt_cc); out: int32 [n], the minimum of m0 over each pixel's region
+extern "C" int fstt_propagate_min(const void* m0, const void* roots,
+                                  void* out, int n, void* stream) {
+    if (n > 0) {
+        cudaStream_t s = (cudaStream_t)stream;
+        cudaError_t err = cudaMemcpyAsync(out, m0, (size_t)n * 4,
+                                          cudaMemcpyDeviceToDevice, s);
+        if (err != cudaSuccess) return (int)err;
+        const int threads = 256, blocks = (n + threads - 1) / threads;
+        pm_scatter<<<blocks, threads, 0, s>>>(
+            (const int32_t*)roots, (const int32_t*)m0, (int32_t*)out, n);
+        pm_gather<<<blocks, threads, 0, s>>>((const int32_t*)roots,
+                                             (int32_t*)out, n);
     }
     return (int)cudaGetLastError();
 }

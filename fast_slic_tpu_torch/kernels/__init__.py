@@ -61,6 +61,11 @@ KERNELS = (
     Kernel("framed_segment_sum", _segsum.framed_segment_sum, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:90"),
+    # the same TPU kernel as the components, with any seed
+    Kernel("propagate_min", _cca.propagate_min, "cuda",
+           "fast_slic_tpu_torch/csrc/cca.cu",
+           "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
+           "(propagate_min_pallas)"),
     # not TPU kernels: the JAX package runs this function as host C++; the
     # walk over the windows, and its bucketing by cell
     Kernel("knn", _knn.knn, "cuda",

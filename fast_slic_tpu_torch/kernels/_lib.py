@@ -47,6 +47,7 @@ _SIGNATURES = {
     "fstt_segment_sum": [P, P, P, I, I, I, P],
     "fstt_framed_segment_sum": [P, P, P, I, I, I, I, P],
     "fstt_cc": [P, P, I, I, P],
+    "fstt_propagate_min": [P, P, P, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
     "fstt_resolve_orphans": [P, P, P, I, P],
     "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,
@@ -130,15 +131,22 @@ def stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point on PyTorch's current stream; raise if the
-    launch was refused.  Pointers are passed as ints (``t.data_ptr()``),
-    which the ``c_void_p`` argtypes convert."""
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device`` (the card the wrapper's tensors
+    lie on), on PyTorch's current stream there; raise if the launch was
+    refused.  The card is made the current one for the call when it is
+    not, as the shards of a mesh over several cards need.  Pointers are
+    passed as ints (``t.data_ptr()``), which the ``c_void_p`` argtypes
+    convert."""
     fn = FUNCS.get(name)
     if fn is None:
         library()
         fn = FUNCS[name]
-    err = fn(*args, stream())
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream())
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream())
     if err != 0:
         raise RuntimeError("CUDA kernel %s failed: cudaError %d" % (name, err))
 

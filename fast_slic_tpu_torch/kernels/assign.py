@@ -127,7 +127,7 @@ def assign(planes, table, cand, assignment, coef, S: int, stride: int,
     if min_dists is not None:
         _lib.check(min_dists, "min_dists", torch.int32, dev, assignment.shape)
         md = min_dists.data_ptr()
-    _lib.launch("fstt_assign", planes.data_ptr(), table.data_ptr(),
+    _lib.launch("fstt_assign", dev, planes.data_ptr(), table.data_ptr(),
                 cand.data_ptr(), assignment.data_ptr(), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 int(bool(manhattan)), table.shape[-2], B)

@@ -179,9 +179,9 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
         _lib.check(min_dists, "min_dists", torch.float32, dev,
                    assignment.shape)
         md = min_dists.data_ptr()
-    _lib.launch("fstt_assign_float", planes.data_ptr(), fp, table.data_ptr(),
-                cp, cand.data_ptr(), assignment.data_ptr(), md,
-                float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
+    _lib.launch("fstt_assign_float", dev, planes.data_ptr(), fp,
+                table.data_ptr(), cp, cand.data_ptr(), assignment.data_ptr(),
+                md, float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 _VARIANT_CODE[variant], int(bool(manhattan)),
                 table.shape[-2], B)
     # the launcher skips a pass with no rows (rem >= H)

@@ -1,13 +1,16 @@
 """Wrappers of the CCA kernels (``csrc/cca.cu``): connected components,
 which replaces ``fast_slic_tpu/pallas/cca_tpu.py:_cc_pass_kernel``; the
-table lookup, which replaces ``fast_slic_tpu/pallas/segsum_tpu.py:
-_lookup_kernel``; and the orphan chase, which replaces the loop of those
-lookups in ``fast_slic_tpu/ops/cca.py:_resolve_orphans``.
+minimum of any seed over each of those components, which replaces the
+same kernel as ``propagate_min_pallas`` calls it; the table lookup, which
+replaces ``fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel``; and the
+orphan chase, which replaces the loop of those lookups in
+``fast_slic_tpu/ops/cca.py:_resolve_orphans``.
 
 The plain PyTorch versions are the JAX package's non-TPU branches:
 neighbour-min sweeps with pointer jumping
-(``fast_slic_tpu/ops/cca.py:connected_components``), a gather, and pointer
-doubling.  A CPU tensor goes to them; a CUDA tensor launches the kernel.
+(``fast_slic_tpu/ops/cca.py:connected_components``), a segment minimum, a
+gather, and pointer doubling.  A CPU tensor goes to them; a CUDA tensor
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from ..config import UNASSIGNED
 from . import _lib
 
 __all__ = ["connected_components", "connected_components_plain", "lookup",
-           "lookup_plain", "resolve_orphans", "resolve_orphans_plain"]
+           "lookup_plain", "propagate_min", "propagate_min_plain",
+           "resolve_orphans", "resolve_orphans_plain"]
 
 _BIG = 0x7FFFFFFF
 
@@ -74,12 +78,44 @@ def connected_components(labels):
     _lib.check(labels, "labels", torch.int32, dev)
     H, W = labels.shape
     out = torch.empty((H, W), dtype=torch.int32, device=dev)
-    _lib.launch("fstt_cc", labels.data_ptr(), out.data_ptr(), H, W)
+    _lib.launch("fstt_cc", dev, labels.data_ptr(), out.data_ptr(), H, W)
     connected_components.launches += 1
     return out
 
 
 connected_components.launches = 0
+
+
+def propagate_min_plain(m0, roots):
+    """int32 seed m0 [H, W] and the regions' roots [H, W] (the
+    :func:`connected_components` of the labels) -> [H, W] int32: each pixel
+    gets the minimum of m0 over its 4-connected equal-label region."""
+    r = roots.reshape(-1).long()
+    m = m0.reshape(-1)
+    return m.clone().scatter_reduce_(0, r, m, "amin")[r].reshape(m0.shape)
+
+
+def propagate_min(m0, roots):
+    """Dispatch the region minimum by device; see
+    :func:`propagate_min_plain`.  On the card one call is a device copy
+    and two kernels."""
+    if m0.ndim != 2 or roots.shape != m0.shape:
+        raise ValueError("m0 and roots must be [H, W]")
+    dev = m0.device
+    if dev.type == "cpu":
+        return propagate_min_plain(m0, roots)
+    if dev.type != "cuda":
+        raise ValueError("unsupported device %s" % dev)
+    _lib.check(m0, "m0", torch.int32, dev)
+    _lib.check(roots, "roots", torch.int32, dev)
+    out = torch.empty_like(m0)
+    _lib.launch("fstt_propagate_min", dev, m0.data_ptr(), roots.data_ptr(),
+                out.data_ptr(), m0.numel())
+    propagate_min.launches += 1
+    return out
+
+
+propagate_min.launches = 0
 
 
 def lookup_plain(ids, table):
@@ -99,7 +135,7 @@ def lookup(ids, table):
     _lib.check(ids, "ids", torch.int32, dev)
     _lib.check(table, "table", torch.int32, dev)
     out = torch.empty_like(ids)
-    _lib.launch("fstt_lookup", ids.data_ptr(), table.data_ptr(),
+    _lib.launch("fstt_lookup", dev, ids.data_ptr(), table.data_ptr(),
                 out.data_ptr(), ids.numel(), table.shape[0])
     lookup.launches += 1
     return out
@@ -137,7 +173,7 @@ def resolve_orphans(substitute, target):
     _lib.check(substitute, "substitute", torch.int32, dev)
     _lib.check(target, "target", torch.int32, dev)
     out = torch.empty_like(substitute)
-    _lib.launch("fstt_resolve_orphans", substitute.data_ptr(),
+    _lib.launch("fstt_resolve_orphans", dev, substitute.data_ptr(),
                 target.data_ptr(), out.data_ptr(), substitute.shape[0])
     resolve_orphans.launches += 1
     return out

@@ -83,7 +83,7 @@ def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
     n_scratch = scratch_size(N, bins)
     buf = torch.empty(V * bins + n_scratch, dtype=torch.int32, device=dev)
     out = buf[:V * bins].view(torch.float32).view(V, bins)
-    _lib.launch("fstt_fsegsum", ids.data_ptr(), mask.data_ptr(),
+    _lib.launch("fstt_fsegsum", dev, ids.data_ptr(), mask.data_ptr(),
                 vals.data_ptr(), out.data_ptr(),
                 buf.data_ptr() + 4 * V * bins, n_scratch, N, V, bins,
                 -1 if wrow is None else int(wrow))

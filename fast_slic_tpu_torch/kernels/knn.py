@@ -157,8 +157,8 @@ def knn_buckets(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
     _lib.check(cell_start, "cell_start", torch.int32, ys.device,
                (nh * nw + 1,))
     tile = min(BUCKET_TILE, -(-K // 32) * 32)
-    _lib.launch("fstt_knn_buckets", ys.data_ptr(), xs.data_ptr(), K, S, nh,
-                nw, BUCKET_RANGE, tile, sorted_ids.data_ptr(),
+    _lib.launch("fstt_knn_buckets", ys.device, ys.data_ptr(), xs.data_ptr(),
+                K, S, nh, nw, BUCKET_RANGE, tile, sorted_ids.data_ptr(),
                 cell_start.data_ptr())
     knn_buckets.launches += 1
     return sorted_ids, cell_start
@@ -192,7 +192,7 @@ def knn(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int,
         rest = whole[heap + K * m + K:]
         sorted_ids, cell_start = knn_buckets(ys, xs, H, W,
                                              (rest[:K], rest[K:]))
-        _lib.launch("fstt_knn", ys.data_ptr(), xs.data_ptr(),
+        _lib.launch("fstt_knn", dev, ys.data_ptr(), xs.data_ptr(),
                     sorted_ids.data_ptr(), cell_start.data_ptr(), K, S, nh,
                     nw, m, whole.data_ptr() if heap else None, HEAP_WARPS,
                     buf.data_ptr(), buf[K * m:].data_ptr())

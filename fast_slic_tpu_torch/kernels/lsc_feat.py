@@ -45,7 +45,7 @@ def lsc_color_feats(planes, lcos, lsin, ccos, csin):
     tables = torch.stack([lcos, lsin, ccos, csin]).to(dev, torch.float32)
     _, H, W = planes.shape
     out = torch.empty((6, H, W), dtype=torch.float32, device=dev)
-    _lib.launch("fstt_lsc_feat", planes.data_ptr(), tables.data_ptr(),
+    _lib.launch("fstt_lsc_feat", dev, planes.data_ptr(), tables.data_ptr(),
                 out.data_ptr(), H * W)
     lsc_color_feats.launches += 1
     return out

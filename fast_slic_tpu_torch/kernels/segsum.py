@@ -102,7 +102,7 @@ def _launch_update(name, assignment, planes, mask, K, stride, rem):
     if mask is not None:
         _lib.check(mask, "mask", torch.bool, dev)
         args.append(mask.data_ptr())
-    _lib.launch(name, *args, out.data_ptr(), H, W, K, B, stride, rem)
+    _lib.launch(name, dev, *args, out.data_ptr(), H, W, K, B, stride, rem)
     return out
 
 
@@ -173,7 +173,7 @@ def segment_sum(ids, vals, num_segments: int):
     _lib.check(vals, "vals", torch.int32, dev)
     V, N = vals.shape
     out = torch.zeros((V, num_segments + 1), dtype=torch.int32, device=dev)
-    _lib.launch("fstt_segment_sum", ids.data_ptr(), vals.data_ptr(),
+    _lib.launch("fstt_segment_sum", dev, ids.data_ptr(), vals.data_ptr(),
                 out.data_ptr(), N, V, num_segments + 1)
     segment_sum.launches += 1
     return out
@@ -219,8 +219,8 @@ def framed_segment_sum(ids, vals, num_segments_f: int):
     _lib.check(vals, "vals", torch.int32, dev)
     V, B, Nf = vals.shape
     out = torch.zeros((B, V, num_segments_f), dtype=torch.int32, device=dev)
-    _lib.launch("fstt_framed_segment_sum", ids.data_ptr(), vals.data_ptr(),
-                out.data_ptr(), B, Nf, V, num_segments_f)
+    _lib.launch("fstt_framed_segment_sum", dev, ids.data_ptr(),
+                vals.data_ptr(), out.data_ptr(), B, Nf, V, num_segments_f)
     framed_segment_sum.launches += 1
     return out
 

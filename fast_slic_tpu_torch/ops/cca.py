@@ -117,20 +117,25 @@ def _topk_keep(areas, kept_pre, k: int, n: int):
 
 
 def orphan_tables(areas, target, num_components, K: int,
-                  min_threshold: int):
+                  min_threshold: int, n_pixels=None):
     """The selection of cca.cpp:212-238 on the component tables of one
     frame ([n]) or B frames ([B, n]; frame-local ids): area threshold,
     top-K by area, renumbering in leader order and the "component 0 always
     gets a label" rule (cca.cpp:238).  Returns the tables of the orphan
     chase, flattened over the frames -- substitute int32 [B*n] (UNASSIGNED
     for a dropped component) and target int32 [B*n] (pointers into the
-    flattened tables) -- and the boundary-tie flag per frame."""
+    flattened tables) -- and the boundary-tie flag per frame.
+    ``n_pixels`` (default n): the frame's pixel count, the largest area,
+    where the tables hold fewer bins than pixels (the row-sharded CCA
+    sizes them by the component count)."""
     n = areas.shape[-1]
+    n_pixels = n if n_pixels is None else n_pixels
     dev = areas.device
     citoa = torch.arange(n, dtype=torch.int32, device=dev)
     valid_comp = citoa < num_components[..., None]
     kept_pre = valid_comp & (areas >= min_threshold)
-    kept, boundary_tie = _topk_keep(areas, kept_pre, min(K, n), n)
+    kept, boundary_tie = _topk_keep(areas, kept_pre, min(K, n_pixels),
+                                    n_pixels)
 
     substitute = torch.where(
         kept, _cumsum_last(kept, torch.int32) - 1,
@@ -150,12 +155,13 @@ def orphan_tables(areas, target, num_components, K: int,
             (target + base).reshape(-1).to(torch.int32), boundary_tie)
 
 
-def _substitutes(areas, target, num_components, K: int, min_threshold: int):
+def _substitutes(areas, target, num_components, K: int, min_threshold: int,
+                 n_pixels=None):
     """:func:`orphan_tables` and the orphan adoption (cca.cpp:240-254) in
     one chase, with no wait on the host.  Returns (substitute int32 of the
     tables' shape, boundary-tie flag per frame)."""
     substitute, pointers, boundary_tie = orphan_tables(
-        areas, target, num_components, K, min_threshold)
+        areas, target, num_components, K, min_threshold, n_pixels)
     return (resolve_orphans(substitute, pointers).reshape(areas.shape),
             boundary_tie)
 

@@ -1,7 +1,7 @@
 """Batched (video) SLIC: :class:`BatchedSlic` over [B, H, W, 3] frames.
 
-The counterpart of ``fast_slic_tpu/parallel/batch.py`` on one device.  Two
-batch modes:
+The counterpart of ``fast_slic_tpu/parallel/batch.py``.  Two batch
+modes:
 
 * ``"map"`` (default): the frames run in turn through the single-frame
   pipeline (``pipeline.iterate_graph``) on the device; every variant.
@@ -11,6 +11,15 @@ batch modes:
 
 ``"canvas"`` (the JAX package's spacer-row TPU layout, not ported) runs
 the stack path: its per-frame results equal map's, and so do stack's.
+
+With ``mesh=`` (a :class:`.mesh.Mesh`) the batch splits over the mesh's
+``data`` axis in contiguous groups of B / data frames, as ``shard_map``'s
+``P("data")`` splits it; each group runs map or stack mode on the first
+``space`` shard of its data row (the ``space`` axis is replicated, as in
+the JAX package).  Frames are independent, so the groups share nothing but
+the flags: the candidate overflow is the any of the groups' (an
+all_gather), the tie flags stay per frame.  Labels, flags and the state
+are joined on the first group's device.
 
 Exactness is kept as in the single-frame runner: a candidate overflow
 re-runs the batch from its state before the batch with more slots, and a
@@ -26,8 +35,7 @@ import torch
 
 from .. import cluster as cluster_lib
 from ..cluster import Clusters
-from ..config import (UNASSIGNED, VARIANT_LSC, StaticConfig, check_arch,
-                      not_ported)
+from ..config import UNASSIGNED, VARIANT_LSC, StaticConfig, check_arch
 from ..model import resolve_device
 from ..ops.cca import selection_rerun_device
 from ..pipeline import derive_scalars, iterate_graph
@@ -52,7 +60,9 @@ class BatchedSlic:
     each stream position warm-starts from its previous frame.  Labels come
     back as an int32 tensor [B, H, W] on the device, -1 = unassigned.
     ``device="cuda"`` (the default) raises without a GPU; ``device="cpu"``
-    runs the plain PyTorch path.  ``arch`` is accepted for API parity.
+    runs the plain PyTorch path.  With ``mesh`` its devices hold the frames
+    (module docstring) and ``device`` is not used.  ``arch`` is accepted
+    for API parity.
     """
 
     def __init__(self, num_components=400, compactness=10.0,
@@ -63,11 +73,14 @@ class BatchedSlic:
                  batch_mode="map", device="cuda"):
         if batch_mode not in ("map", "canvas", "stack"):
             raise ValueError("batch_mode must be 'map', 'stack' or 'canvas'")
-        if mesh is not None:
-            raise not_ported("mesh", "§1.13")
         if arch is not None:
             check_arch(arch)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # one device a group of frames: the data axis's, or ``device``
+        self._devices = ([resolve_device(device)] if mesh is None else
+                         [resolve_device(d)
+                          for d in mesh.axis_devices("data")])
+        self.device = self._devices[0]
         self.batch_mode = batch_mode
         self.num_components = num_components
         self.compactness = compactness
@@ -80,7 +93,7 @@ class BatchedSlic:
         self.preemptive_thres = preemptive_thres
         self.arch = arch
         self.check_exactness = check_exactness
-        self._state = None  # Clusters of [B, K] tensors on the device
+        self._state = None  # a group's Clusters of [B/data, K] tensors
         self._capacity_boost = 0
         self.last_flags = None
 
@@ -88,7 +101,8 @@ class BatchedSlic:
     def _use_stack(self, B: int) -> bool:
         return (self.batch_mode in ("stack", "canvas")
                 and self.variant != VARIANT_LSC
-                and B * self.num_components < UNASSIGNED)
+                and B // len(self._devices) * self.num_components
+                < UNASSIGNED)
 
     def _cfg(self, H: int, W: int) -> StaticConfig:
         kw = {}
@@ -112,15 +126,23 @@ class BatchedSlic:
     def state(self):
         """The per-frame cluster state as numpy ``Clusters`` ([B, K]
         fields), or None before the first batch."""
-        return None if self._state is None else self._state.as_numpy()
+        if self._state is None:
+            return None
+        return Clusters(*(np.concatenate(xs) for xs in zip(
+            *(g.as_numpy().fields() for g in self._state))))
 
     @state.setter
     def state(self, st) -> None:
         """Any object with the eight [B, K] cluster fields (numpy, or a JAX
-        ``Clusters``) becomes the state on the device."""
-        self._state = cluster_lib.clusters_from_numpy(
+        ``Clusters``) becomes the state, split over the groups' devices."""
+        st = cluster_lib.clusters_from_numpy(
             st.y, st.x, st.r, st.g, st.b, st.num_members, st.is_active,
-            st.is_updatable).to_torch(self.device)
+            st.is_updatable)
+        G = len(self._devices)
+        Bg = _group_size(st.y.shape[0], G)
+        self._state = [Clusters(*(x[g * Bg:(g + 1) * Bg]
+                                  for x in st.fields())).to_torch(dev)
+                       for g, dev in enumerate(self._devices)]
 
     # -- hot path --------------------------------------------------------
     def iterate(self, images, max_iter=10):
@@ -137,34 +159,59 @@ class BatchedSlic:
             raise ValueError("images must be uint8")
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError("images must be [B, H, W, 3]")
+        B, H, W, _ = images.shape
+        Bg = _group_size(B, len(self._devices))
         if self._state is None:
             self.initialize(images.cpu().numpy())
-        images = images.to(self.device)
-        B, H, W, _ = images.shape
         cfg = self._cfg(H, W)
         scalars = derive_scalars(cfg, self.compactness, self.min_size_factor,
                                  self.preemptive_thres)
         max_iter, stride = int(max_iter), int(self.subsample_stride)
-        if self._use_stack(B):
-            out = iterate_graph_stacked(images, self._state, cfg, scalars,
-                                        max_iter, stride)
-            labels, st, raw = out.labels, out.clusters, out.raw_assignment
-            ovf, tie = out.cand_overflow, out.cca_tie
+        stacked = self._use_stack(B)
+        parts = []
+        for g, dev in enumerate(self._devices):
+            parts.append(_run_group(
+                stacked, images[g * Bg:(g + 1) * Bg].to(dev),
+                self._state[g], cfg, scalars, max_iter, stride))
+        labels, st, raw, ovf, tie = zip(*parts)
+        if self.mesh is None:
+            labels, ovf, tie = labels[0], ovf[0], tie[0]
         else:
-            outs = [iterate_graph(images[f], _frame(self._state, f), cfg,
-                                  scalars, max_iter, stride)
-                    for f in range(B)]
-            labels = torch.stack([o.labels for o in outs])
-            st = _stack([o.clusters for o in outs])
-            raw = torch.stack([o.raw_assignment for o in outs])
-            ovf = torch.any(torch.stack([o.cand_overflow for o in outs]))
-            tie = torch.stack([o.cca_tie for o in outs])
+            labels = self.mesh.gather(list(labels), axis="data")
+            ovf = torch.any(self.mesh.all_gather(list(ovf), axis="data"))
+            tie = self.mesh.gather(list(tie), axis="data")
         # [1 + B] flags: one device-to-host transfer resolves the batch
         both = torch.cat([ovf.reshape(1), tie.reshape(-1)])
         self.last_flags = both[1:]
-        prev_state, self._state = self._state, st
+        prev_state, self._state = self._state, list(st)
         return PendingBatch(self, images, prev_state, max_iter, cfg, scalars,
-                            labels, both, raw)
+                            labels, both, list(raw))
+
+
+def _run_group(stacked: bool, images, st, cfg, scalars, max_iter, stride):
+    """One group's frames on its device, stacked or mapped: (labels,
+    state, raw assignment, overflow flag, tie flags)."""
+    if stacked:
+        out = iterate_graph_stacked(images, st, cfg, scalars, max_iter,
+                                    stride)
+        return (out.labels, out.clusters, out.raw_assignment,
+                out.cand_overflow, out.cca_tie)
+    outs = [iterate_graph(images[f], _frame(st, f), cfg, scalars, max_iter,
+                          stride)
+            for f in range(images.shape[0])]
+    return (torch.stack([o.labels for o in outs]),
+            _stack([o.clusters for o in outs]),
+            torch.stack([o.raw_assignment for o in outs]),
+            torch.any(torch.stack([o.cand_overflow for o in outs])),
+            torch.stack([o.cca_tie for o in outs]))
+
+
+def _group_size(B: int, groups: int) -> int:
+    """Frames a group: B over the data axis (shard_map's P("data"))."""
+    if B % groups:
+        raise ValueError("batch size %d must divide over the data axis "
+                         "(%d devices)" % (B, groups))
+    return B // groups
 
 
 class PendingBatch:
@@ -191,7 +238,10 @@ class PendingBatch:
             parent._capacity_boost += 1
             parent._state = prev_state
             return parent.iterate(images, max_iter)
+        Bg = raw[0].shape[0]
         for f in np.nonzero(both[1:])[0].tolist():
-            fixed = selection_rerun_device(raw[f], cfg.K, int(scalars.thres))
-            labels[f] = torch.where(fixed == UNASSIGNED, -1, fixed)
+            r = raw[f // Bg][f % Bg]
+            fixed = selection_rerun_device(r, cfg.K, int(scalars.thres))
+            fixed = torch.where(fixed == UNASSIGNED, -1, fixed)
+            labels[f] = fixed.to(labels.device)
         return labels

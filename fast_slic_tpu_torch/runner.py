@@ -17,7 +17,8 @@ import torch
 
 from . import pipeline
 from .cluster import Clusters
-from .config import UNASSIGNED, RuntimeParams, StaticConfig
+from .config import (CAND_RERUNS, UNASSIGNED, RuntimeParams, StaticConfig,
+                     more_cand_slots)
 from .ops.cca import selection_rerun_device
 from .utils.recorder import Recorder, Snapshots
 from .utils.timing import Timer
@@ -66,7 +67,7 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
         if not staged:
             with timer.scope("write_to_buffer"):
                 image_t, st = _upload(image, clusters, device)
-        for escalation in range(3):
+        for escalation in range(CAND_RERUNS + 1):
             recorder = Recorder() if cfg.debug_mode else None
             if staged:
                 with timer.scope("execute"):
@@ -83,10 +84,10 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
                 out = pipeline.iterate_graph(image_t, st, cfg, scalars,
                                              params.max_iter,
                                              params.subsample_stride, timer)
-            if escalation == 2 or not bool(out.cand_overflow):
+            if escalation == CAND_RERUNS or not bool(out.cand_overflow):
                 break
-            cfg = dataclasses.replace(cfg,
-                                      cand_slots=min(cfg.cand_slots * 3, 48))
+            cfg = dataclasses.replace(
+                cfg, cand_slots=more_cand_slots(cfg.cand_slots))
         with timer.scope("write_back"):
             tie = bool(out.cca_tie)
             if tie:

@@ -23,17 +23,23 @@ import torch
 class Timer:
     """Stack-based section timer producing the reference JSON shape.
 
-    device: a torch device (or None); CUDA devices time with events."""
+    device: a torch device (or None); CUDA devices time with events on
+    the device's current stream."""
 
     def __init__(self, device=None):
-        self._cuda = device is not None and torch.device(device).type == "cuda"
+        device = None if device is None else torch.device(device)
+        self._cuda = device is not None and device.type == "cuda"
+        self._device = device
         self._stack = []
         self._last = None
 
     def _mark(self):
         if self._cuda:
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            if self._device.index in (None, torch._C._cuda_getDevice()):
+                ev.record()
+            else:  # another card than the current one
+                ev.record(torch.cuda.current_stream(self._device))
             return ev
         return time.perf_counter()
 
@@ -77,5 +83,5 @@ class Timer:
         if self._last is None:
             return ""
         if self._cuda:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self._device)
         return json.dumps(self._resolve(self._last))

@@ -16,7 +16,8 @@ The same inputs, made with numpy from a seed, go through both packages
 * ``BatchedSlic``: stack == map == per-frame ``Slic`` over two batches
   (warm start), ``iterate_async``/``resolve`` == ``iterate``,
   ``check_exactness=False``, the state from the JAX ``BatchedSlic``,
-  canvas runs stack, LSC stacks by map, ``mesh=`` raises.
+  canvas runs stack, LSC stacks by map, ``mesh=`` runs a stacked program
+  a group of frames and equals no mesh.
 """
 
 import numpy as np
@@ -40,6 +41,7 @@ from fast_slic_tpu_torch.ops.cca import (enforce_connectivity_flagged,
                                          enforce_connectivity_framed_flagged)
 from fast_slic_tpu_torch.parallel import batch as tbatch
 from fast_slic_tpu_torch.parallel import stack as tstack
+from fast_slic_tpu_torch.parallel.mesh import make_mesh
 
 B, H, W, K = 3, 96, 128, 24
 FIELDS = ("y", "x", "r", "g", "b", "num_members", "is_active",
@@ -334,8 +336,12 @@ def test_batch_modes_route(monkeypatch, image_factory):
     mapped = _batched(batch_mode="map").iterate(frames, max_iter=2)
     np.testing.assert_array_equal(canvas.numpy(), mapped.numpy())
     assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match="§1.13"):
-        _batched(mesh=object())
+    # a mesh of B groups runs one stacked program a group: equal labels
+    mesh = make_mesh(devices=[torch.device("cpu")] * B, data=B)
+    meshed = _batched(batch_mode="stack", mesh=mesh).iterate(frames,
+                                                           max_iter=2)
+    np.testing.assert_array_equal(meshed.numpy(), mapped.numpy())
+    assert len(calls) == 1 + B
     with pytest.raises(ValueError):
         _batched(batch_mode="vmap")
     # stacked labels f*K + k must stay below 0xFFFF, else map

@@ -40,7 +40,12 @@ plain version (also in ranges of cells); the adjacency (a hot node past the
 12-neighbour cap, labels outside [0, K), a 720p frame) and the densities
 on the card those on the CPU; the CRF's class sum on the card the loop's
 bits; and ``SimpleCRF`` at 720p (N=1600, C=21, four frames) the CPU's and
-the JAX package's posteriors within rtol 2e-4, atol 1e-6.
+the JAX package's posteriors within rtol 2e-4, atol 1e-6.  The region
+minimum of a seed (``propagate_min``, the sharded CCA's kernel) must equal
+its plain version on random, serpentine, superpixel and one-row or
+one-column maps, over the kernel's roots; four shards of one card
+(``ShardedSlicExplicit``) must equal ``SlicAvx2`` at 720p, and a batch
+over a mesh's data axis the batch without one.
 """
 
 import os
@@ -1281,3 +1286,66 @@ def test_enforce_connectivity_on_gpu_matches_cpu(cuda, rng, case):
     want = enforce_connectivity(labels.copy(), thres, device="cpu")
     assert got.dtype == labels.dtype
     np.testing.assert_array_equal(got, want)
+
+
+# the region minimum of any seed: the sharded CCA's three seeds (pixel ids,
+# leader ranks, a seed that is _BIG except at leaders) on real-like maps,
+# over the kernel's roots against the plain version's
+@pytest.mark.parametrize("case", ["random_ids", "serpentine_ranks",
+                                  "superpixels_sparse", "row_1x1000",
+                                  "col_1000x1", "unassigned_big"])
+def test_propagate_min_kernel_matches_plain(cuda, rng, case):
+    big = 0x7FFFFFFF
+    if case == "random_ids":
+        labels = rng.integers(0, 5, size=(301, 517))
+    elif case == "serpentine_ranks":
+        labels = _spiral(720, 1280)
+    elif case in ("superpixels_sparse", "unassigned_big"):
+        labels = _superpixels(rng, 1, 720, 1280)[0][0]
+    else:
+        shape = {"row_1x1000": (1, 1000), "col_1000x1": (1000, 1)}[case]
+        labels = rng.integers(0, 2, size=shape)
+    labels = np.ascontiguousarray(labels, np.int32)
+    n = labels.size
+    if case == "serpentine_ranks":
+        m0 = rng.permutation(n).astype(np.int32)
+    elif case in ("superpixels_sparse", "unassigned_big"):
+        m0 = np.full(n, big, np.int32)
+        keep = rng.random(n) < (0.001 if case == "superpixels_sparse"
+                                else 0.0)
+        m0[keep] = rng.integers(0, 1 << 30, size=int(keep.sum()))
+    else:
+        m0 = np.arange(n, dtype=np.int32)
+    lab_t = torch.from_numpy(labels).to(cuda)
+    m0_t = torch.from_numpy(m0.reshape(labels.shape)).to(cuda)
+    roots = cca.connected_components(lab_t)
+    before = cca.propagate_min.launches
+    got = cca.propagate_min(m0_t, roots)
+    assert cca.propagate_min.launches == before + 1
+    _eq(got, cca.propagate_min_plain(
+        m0_t, cca.connected_components_plain(lab_t)))
+
+
+def test_mesh_on_one_card_matches_single_device(cuda, rng):
+    """ShardedSlicExplicit over four shards of one card at 720p equals
+    SlicAvx2 on two warm frames; BatchedSlic over a data axis of two equals
+    no mesh."""
+    from fast_slic_tpu_torch.parallel.mesh import make_mesh
+    from fast_slic_tpu_torch.parallel.spatial_shardmap import (
+        ShardedSlicExplicit)
+    mesh = make_mesh(data=1, space=4, devices=[cuda] * 4)
+    sh = ShardedSlicExplicit(num_components=1600, mesh=mesh)
+    single = SlicAvx2(num_components=1600, device=cuda)
+    for f in _frames(rng, 2, 720, 1280):
+        np.testing.assert_array_equal(sh.iterate(f), single.iterate(f))
+        yxm = single.slic_model.to_yxmrgb()
+        np.testing.assert_array_equal(sh.state.y, yxm[:, 0])
+        np.testing.assert_array_equal(sh.state.x, yxm[:, 1])
+    assert min(sh.last_seam_rounds) >= 2 and mesh.bytes_moved > 0
+    frames = _frames(rng, 4)
+    for mode in ("map", "stack"):
+        meshed = BatchedSlic(num_components=150, batch_mode=mode,
+                             mesh=make_mesh(data=2, space=2,
+                                            devices=[cuda] * 4))
+        plain = BatchedSlic(num_components=150, batch_mode=mode, device=cuda)
+        _eq(meshed.iterate(frames), plain.iterate(frames))

@@ -198,10 +198,14 @@ def test_debug_and_profile_run(image_factory, attr):
 
 def test_paths_outside_the_slice_raise(image_factory):
     from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+    from fast_slic_tpu_torch.parallel.mesh import make_mesh
     image = image_factory(32, 32)
-    # multi-device meshes are the one module left to port
-    with pytest.raises(NotImplementedError, match="1.13"):
-        BatchedSlic(num_components=4, mesh=object(), device="cpu")
+    # multi-device meshes are ported: two groups of a frame equal no mesh
+    frames = np.stack([image, image_factory(32, 32)])
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2, data=2)
+    got = BatchedSlic(num_components=4, mesh=mesh).iterate(frames, 2)
+    ref = BatchedSlic(num_components=4, device="cpu").iterate(frames, 2)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
     m = SlicModel(4, device="cpu")
     # the graph utilities are ported: one label has no neighbours
     conn = m.get_connectivity(np.zeros((4, 4), np.int16))
