@@ -32,9 +32,10 @@ Phases (any failure exits non-zero; no phase's error is caught):
    masked update with that pixel mask at B=4 and B=1, and the components
    and the per-frame segment sum on the four frames' stacked CCA map; the
    f32 segment sum again under frame 0's preemptive mask; the region
-   minimum (propagate_min) on frame 0's raw assignment with pixel-id,
-   leader-rank and _BIG-but-at-leaders seeds (and, in the mesh phase, at
-   the mesh path's own slabs and seeds); the KNN on the
+   minimum per pixel (propagate_min) and per region (region_table) on
+   frame 0's raw assignment with pixel-id, leader-rank and
+   _BIG-but-at-leaders seeds (and, in the mesh phase, at the mesh path's
+   own slabs and seeds, with the seam step seam_min); the KNN on the
    clusters of the JAX package's first 720p frame at m = 4, 1, 8 and 60,
    and its bucketing by cell);
    bit-exact (the f32 segment sum against its plain version on the CPU,
@@ -95,10 +96,12 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card; ms a frame (CUDA events and host clock), launches, tie
    escalations, seam-fixpoint rounds and bytes between shards for each
    sharded frame and its single-device run; and the path's own
-   connected_components and propagate_min calls on one 4K frame (slabs of
-   540x3840) and one 1080p frame (270x1920), each held bit for bit against
-   its plain version on the same inputs, the 4K slab giving propagate_min's
-   JSON row;
+   connected_components, seam_min and lookup calls on one 4K frame (slabs
+   of 540x3840) and one 1080p frame (270x1920), each held bit for bit
+   against its plain version on the same inputs, the 4K run giving the
+   JSON rows of seam_min (a seam row) and of region_table and
+   propagate_min (a slab and its leader-rank seed), which the path no
+   longer calls (launches 0);
 11. golden: the seven standard and the three real-distance golden cases
    agree 1.0 with golden_ref.npz, lsc_k256 >= 0.999.
 
@@ -179,11 +182,11 @@ BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
               "connected_components", "lookup", "resolve_orphans")
 # the mesh path: four shards of one card at 4K (the standard variant), and
 # at 1080p each variant and the preemptive grid
-MESH_PATH = ("lab", "assign", "slic_update", "propagate_min",
+MESH_PATH = ("lab", "assign", "slic_update", "seam_min",
              "connected_components", "segment_sum", "lookup",
              "resolve_orphans")
 MESH_VARIANT_PATH = ("assign_float", "lsc_feat", "fsegsum",
-                     "slic_update_masked", "propagate_min")
+                     "slic_update_masked", "seam_min")
 # the CRF path: the standard path's kernels, then the graph utilities
 CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
 # the api phase: debug and profiled frames of SlicAvx2, LSCAvx2 and the
@@ -198,13 +201,14 @@ PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
                   "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
                   "segment_sum_kernel", "knn_kernel", "knn_buckets_kernel",
-                  "pm_scatter", "pm_gather")
+                  "seam_min_kernel", "rt_init", "rt_scatter")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
     + [(k, "float") for k in ("lsc_feat", "assign_float", "fsegsum")]
     + [("slic_update_masked", "preemptive"), ("framed_segment_sum", "batch"),
-       ("knn", "crf"), ("knn_buckets", "crf"), ("propagate_min", "mesh")])
+       ("knn", "crf"), ("knn_buckets", "crf"), ("propagate_min", "mesh"),
+       ("region_table", "mesh"), ("seam_min", "mesh")])
 
 
 class SmokeFailure(RuntimeError):
@@ -555,12 +559,13 @@ def kernel_phase(dev, frame, K: int, res: Results):
 
 
 def propagate_min_check(dev, raw, res: Results):
-    """The region minimum against its plain version, bit for bit, on a raw
-    assignment with the sharded CCA's three seeds: pixel ids, leader ranks
+    """The region minimum per pixel (propagate_min) and per region
+    (region_table) against their plain versions, bit for bit, on a raw
+    assignment with the sharded CCA's seeds: pixel ids, leader ranks
     (every pixel's exclusive leader count) and _BIG except at the leaders;
-    the kernel over the components kernel's roots, the plain version over
-    connected_components_plain's.  Its JSON row is timed in the mesh
-    phase, at the mesh path's slabs (propagate_min_on_slabs)."""
+    the kernels over the components kernel's roots, the plain versions
+    over connected_components_plain's.  Their JSON rows are timed in the
+    mesh phase, at the mesh path's slabs (cca_on_slabs)."""
     import torch
     from fast_slic_tpu_torch.kernels import cca
     from fast_slic_tpu_torch.ops.cca import leader_ranks
@@ -578,13 +583,19 @@ def propagate_min_check(dev, raw, res: Results):
         want = cca.propagate_min_plain(m0, plain_roots)
         res.check("propagate_min", max_abs_err(cca.propagate_min(m0, roots),
                                                want))
-        log("kernel phase: propagate_min with the %s seed equals its plain "
-            "version (%d distinct minima)" % (what, int(torch.unique(
-                want).numel())))
+        res.check("region_table", max_abs_err(
+            cca.region_table(m0, roots),
+            cca.region_table_plain(m0, plain_roots)))
+        log("kernel phase: propagate_min and region_table with the %s seed "
+            "equal their plain versions (%d distinct minima)"
+            % (what, int(torch.unique(want).numel())))
     m0 = rank.reshape(H, W).contiguous()
     log_times("propagate_min %dx%d" % (W, H),
               lambda: cca.propagate_min(m0, roots),
               lambda: cca.propagate_min_plain(m0, roots), 12 * n, 2 * n)
+    log_times("region_table %dx%d" % (W, H),
+              lambda: cca.region_table(m0, roots),
+              lambda: cca.region_table_plain(m0, roots), 12 * n, n)
 
 
 def float_kernel_phase(dev, image, K: int, res: Results):
@@ -1571,64 +1582,119 @@ def mesh_frames(H: int, W: int, K: int, sharded, single, frames, tag: str):
     return counts
 
 
-def propagate_min_on_slabs(mesh, frame, K: int, res: Results, tag: str,
-                           time_row: bool):
-    """propagate_min at the mesh path's own shapes and inputs: one frame
-    through a fresh ShardedSlicExplicit with the shard step's
-    connected_components and propagate_min wrapped to keep each call's
-    inputs and result (spatial_shardmap looks both names up at call time).
-    Each slab's roots equal connected_components_plain's, and each region
-    minimum the plain version's on the same seed and roots, bit for bit.
-    ``time_row``: time the JSON row on the first leader-rank call on slab
-    1 (the second propagation's first round), 12 bytes a pixel moved."""
+def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
+                 time_rows: bool):
+    """The sharded CCA's kernels at the mesh path's own shapes and inputs:
+    one frame through a fresh ShardedSlicExplicit with the shard step's
+    connected_components, seam_min and lookup wrapped to hold each call
+    against its plain version on the same inputs, bit for bit (the
+    components, every seam, with its changed flag, every gather of seam
+    values, final gather and relabel), and its halo propagations to count
+    their rounds (spatial_shardmap looks these names up at call time).
+    Each round makes one two-row gather a shard and one seam_min a seam
+    side; each propagation one gather of a whole slab a shard, and the
+    relabel one more.  ``time_rows``: time seam_min's JSON row on the
+    first seam of slab 1 in the second propagation (the leader ranks),
+    and region_table's and propagate_min's on that slab's seed and roots,
+    12 bytes a pixel moved."""
+    import torch
     from fast_slic_tpu_torch.kernels import cca
     from fast_slic_tpu_torch.parallel import spatial_shardmap as ssm
 
-    comps, calls = [], []
+    D = mesh.shape["space"]
+    Hl, W = frame.shape[0] // D, frame.shape[1]
+    comps, seams, gathers, rounds, inputs = [], [], [], [], {}
 
     def components(labels):
         out = cca.connected_components(labels)
-        comps.append((labels.clone(), out.clone()))
+        res.check("connected_components", max_abs_err(
+            out, cca.connected_components_plain(labels)))
+        comps.append(labels.shape)
         return out
 
-    def region_min(m0, roots):
-        out = cca.propagate_min(m0, roots)
-        calls.append((m0.clone(), roots, out.clone()))
+    def seam_min(table, roots_row, lab_row, lab_nb, val_nb, changed,
+                 stamp):
+        args = (roots_row, lab_row, lab_nb, val_nb)
+        want, want_changed = table.clone(), changed.clone()
+        cca.seam_min_plain(want, *args, want_changed, stamp)
+        if "slab" in inputs and table is inputs["slab"][2] and (
+                "seam" not in inputs):
+            inputs["seam"] = (table.clone(), args, changed.clone(), stamp)
+        cca.seam_min(table, *args, changed, stamp)
+        res.check("seam_min", max(max_abs_err(table, want),
+                                  max_abs_err(changed, want_changed)))
+        seams.append((len(rounds), roots_row.numel()))
+
+    def lookup(ids, table):
+        out = cca.lookup(ids, table)
+        res.check("lookup", max_abs_err(out, cca.lookup_plain(ids, table)))
+        gathers.append(ids.numel())
         return out
 
+    def halo_propagate(mesh, labs, tables, roots, n_rounds):
+        if time_rows and len(rounds) == 1:
+            inputs["slab"] = (tables[1].clone().reshape(Hl, W), roots[1],
+                              tables[1])
+        out = real_propagate(mesh, labs, tables, roots, n_rounds)
+        rounds.append(n_rounds[-1])
+        return out
+
+    real_propagate = ssm._halo_propagate
     sharded = ssm.ShardedSlicExplicit(num_components=K, mesh=mesh)
-    ssm.connected_components, ssm.propagate_min = components, region_min
+    names = ("connected_components", "seam_min", "lookup", "_halo_propagate")
+    saved = [getattr(ssm, k) for k in names]
+    for k, fn in zip(names, (components, seam_min, lookup, halo_propagate)):
+        setattr(ssm, k, fn)
     try:
         sharded.iterate(frame)
     finally:
-        ssm.connected_components = cca.connected_components
-        ssm.propagate_min = cca.propagate_min
-    D = mesh.shape["space"]
-    Hl, W = frame.shape[0] // D, frame.shape[1]
-    # a candidate overflow re-runs the frame: the last run's calls are
-    # the seam rounds' (last_seam_rounds)
-    rounds = sharded.last_seam_rounds
+        for k, fn in zip(names, saved):
+            setattr(ssm, k, fn)
+    # a candidate overflow re-runs the frame: every run's CCA counts
     runs = sharded.last_reruns + 1
-    last = calls[len(calls) - D * sum(rounds):]
-    require(len(comps) == D * runs and len(last) == D * sum(rounds)
-            and all(m0.shape == (Hl, W) for m0, _, _ in calls),
-            "mesh %s: %d components and %d region-minimum calls in %d runs "
-            "for seam rounds %s" % (tag, len(comps), len(calls), runs,
-                                    rounds))
-    for labels, roots in comps:
-        res.check("connected_components", max_abs_err(
-            roots, cca.connected_components_plain(labels)))
-    for m0, roots, out in calls:
-        res.check("propagate_min", max_abs_err(
-            out, cca.propagate_min_plain(m0, roots)))
-    log("mesh %s: the path's %d connected_components and %d propagate_min "
-        "calls on %dx%d slabs (seam rounds %s) equal their plain versions"
-        % (tag, len(comps), len(calls), W, Hl, rounds))
-    if time_row:
-        m0, roots, _ = last[rounds[0] * D + 1]
-        n = m0.numel()
-        res.time("propagate_min", lambda: cca.propagate_min(m0, roots),
-                 lambda: cca.propagate_min_plain(m0, roots), 12 * n, 2 * n)
+    slab = Hl * W
+    require(len(comps) == D * runs and len(rounds) == 2 * runs
+            and rounds[-2:] == list(sharded.last_seam_rounds)
+            and all(c == (Hl, W) for c in comps)
+            and len(seams) == 2 * (D - 1) * sum(rounds)
+            and all(w == W for _, w in seams)
+            and gathers.count(2 * W) == D * sum(rounds)
+            and gathers.count(slab) == 3 * D * runs
+            and len(gathers) == D * sum(rounds) + 3 * D * runs,
+            "mesh %s: %d components, %d seam_min and %d lookup calls in %d "
+            "runs for seam rounds %s" % (tag, len(comps), len(seams),
+                                        len(gathers), runs, rounds))
+    log("mesh %s: the path's %d connected_components, %d seam_min and %d "
+        "lookup calls (%d of a whole %dx%d slab) in %d runs, seam rounds "
+        "%s, equal their plain versions"
+        % (tag, len(comps), len(seams), len(gathers), gathers.count(slab),
+           W, Hl, runs, rounds))
+    if not time_rows:
+        return
+    (m0, roots, _), (table, args, changed, stamp) = (inputs["slab"],
+                                                     inputs["seam"])
+    n = m0.numel()
+    res.check("region_table", max_abs_err(
+        cca.region_table(m0, roots), cca.region_table_plain(m0, roots)))
+    res.time("region_table", lambda: cca.region_table(m0, roots),
+             lambda: cca.region_table_plain(m0, roots), 12 * n, n)
+    res.check("propagate_min", max_abs_err(
+        cca.propagate_min(m0, roots), cca.propagate_min_plain(m0, roots)))
+    res.time("propagate_min", lambda: cca.propagate_min(m0, roots),
+             lambda: cca.propagate_min_plain(m0, roots), 12 * n, 2 * n)
+    # the seam's bytes: its four rows read, each slot it meets read and
+    # written, the flag written
+    roots_row, lab_row, lab_nb, _ = args
+    slots = int(torch.unique(roots_row[lab_row == lab_nb]).numel())
+    w = roots_row.numel()
+    t1, c1 = table.clone(), changed.clone()
+    t2, c2 = table.clone(), changed.clone()
+    res.time("seam_min", lambda: cca.seam_min(t1, *args, c1, stamp),
+             lambda: cca.seam_min_plain(t2, *args, c2, stamp),
+             16 * w + 8 * slots + 4, w)
+    log("mesh %s: seam_min timed on slab 1's first seam of the leader-rank "
+        "propagation: %d pixels, %d slots met; region_table and "
+        "propagate_min on that slab (%d pixels)" % (tag, w, slots, n))
 
 
 def mesh_phase(dev, batch, res: Results):
@@ -1638,8 +1704,8 @@ def mesh_phase(dev, batch, res: Results):
     BatchedSlic batch over data=2, space=2 against no mesh; the JAX
     package's sharded classes (tests/data/port_mesh_ref.npz) on eight
     shards; and the path's own CCA kernel calls on one 4K and one 1080p
-    frame against their plain versions (propagate_min_on_slabs), the 4K
-    slab timing propagate_min's row.  Returns (launch counts of the 4K
+    frame against their plain versions (cca_on_slabs), the 4K run timing
+    the rows of seam_min, region_table and propagate_min.  Returns (launch counts of the 4K
     run, of the 1080p runs)."""
     import torch
     from fast_slic_tpu_torch import (LSCAvx2, SlicAvx2, SlicRealDist,
@@ -1660,7 +1726,10 @@ def mesh_phase(dev, batch, res: Results):
         ShardedSlicExplicit(num_components=K4K, mesh=mesh4),
         SlicAvx2(num_components=K4K, device=dev), frames, "4K")
     log("mesh: 4K launches %s" % json.dumps(counts))
-    propagate_min_on_slabs(mesh4, frames[0], K4K, res, "4K", True)
+    log("mesh: 4K launches of propagate_min %d, region_table %d (the "
+        "sharded CCA keeps region tables and builds none)"
+        % (counts["propagate_min"], counts["region_table"]))
+    cca_on_slabs(mesh4, frames[0], K4K, res, "4K", True)
 
     f1080 = make_frames(1, H1080, W1080)
     variant_counts = {}
@@ -1679,7 +1748,7 @@ def mesh_phase(dev, batch, res: Results):
                 ShardedSlic(num_components=K720, mesh=mesh4),
                 SlicAvx2(num_components=K720, device=dev), f1080,
                 "ShardedSlic")
-    propagate_min_on_slabs(mesh4, f1080[0], K720, res, "1080p", False)
+    cca_on_slabs(mesh4, f1080[0], K720, res, "1080p", False)
 
     mesh22 = make_mesh(data=2, space=2, devices=[dev] * 4)
     for mode in ("stack", "map"):

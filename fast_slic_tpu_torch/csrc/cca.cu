@@ -25,20 +25,32 @@
 // decreases and stays inside the region), so the root is that minimum and
 // the labelling is unique whatever order the atomics land in.
 
-// fstt_propagate_min replaces the general use of the same TPU kernel,
-// propagate_min_pallas (cca_tpu.py:349): the minimum of an int32 seed m0 over
-// each 4-connected equal-label region, which a spatially sharded CCA needs
-// for three seeds (global pixel ids, leader ranks, substitutes).  The TPU
-// spread the seed itself, strip by strip; here the region is known first
-// and the seed follows it in two passes.  The caller passes the regions'
-// roots: fstt_cc above gives every pixel its region's minimum pixel, found
-// once for all the seeds and rounds that share the labels.
-//   pm_scatter  out = m0 (a device copy), then one thread a pixel takes
-//               atomicMin(out[root], m0[p]) where m0[p] is below the slot
-//               it reads: the root's slot ends holding the region's
-//               minimum, whatever order the atomics land in;
-//   pm_gather   out[p] = out[root[p]].  In place: a root's slot is the only
-//               one read, and its own thread writes it the value it holds.
+// fstt_region_table, fstt_seam_min and fstt_propagate_min replace the
+// general use of the same TPU kernel, propagate_min_pallas (cca_tpu.py:349):
+// the minimum of an int32 seed over each 4-connected equal-label region,
+// which a spatially sharded CCA needs for two seeds (global pixel ids,
+// leader ranks) over an image whose rows are split into slabs.  The TPU
+// spread the seed itself, strip by strip, over the whole slab every round of
+// the seam fixpoint.  Here a slab's regions are known first (fstt_cc above
+// gives every pixel its region's minimum pixel, its ROOT, found once for
+// every seed and round that share the labels), and the minimum is kept per
+// region, in a TABLE indexed by the root's pixel:
+//   fstt_region_table  each root's slot takes its own seed, every other
+//               slot 0x7FFFFFFF (rt_init), then one thread a pixel that is
+//               no root takes atomicMin(table[root], m0[p]) where m0[p] is
+//               below the slot it reads (rt_scatter): each root's slot ends
+//               holding its region's minimum, whatever order the atomics
+//               land in;
+//   fstt_seam_min  one thread a pixel of a slab's edge row: where its label
+//               equals the label across the seam (the neighbour slab's
+//               edge row), atomicMin(table[root], the neighbour's value),
+//               and *changed = stamp where a slot went down.  A round of
+//               the seam fixpoint touches only the two edge rows;
+//   fstt_propagate_min  the per-pixel form: the region table, then
+//               out[p] = table[root[p]] (lookup_kernel below).
+// The sharded CCA builds no table for its own seeds (a root is its slab
+// region's smallest pixel, and every leader is a root), so its only pass
+// over a whole slab is the final gather, once a propagation.
 //
 // fstt_lookup replaces fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel
 // (pallas_call in banded_lookup_pallas), which emulated a gather with banded
@@ -69,11 +81,19 @@
 // part.  Parents in device memory are read through volatile loads, so a
 // thread never follows a stale L1 copy of a chain another SM has relinked.
 //
-// The region minimum with the roots given must move 12 bytes a pixel (the
-// roots and the seed read, the result written); its copy, scatter and
-// gather move 28.  The scatter's atomics all land on a region's one slot,
-// so it reads the slot first and skips the atomic where the seed cannot
-// lower it, which is most pixels after the first round of a seam fixpoint.
+// The region table must move 12 bytes a pixel (the roots and the seed read,
+// the slot written); its init and scatter move 20 (both read the roots and
+// the seed), and the per-pixel form 32 (the gather adds 12).  The scatter's
+// atomics all land on a region's one slot, so it reads the slot first and
+// skips the atomic where the seed cannot lower it; and the init gives each
+// root its own seed, so a pixel-id seed (a root is its region's smallest
+// pixel) makes no atomic at all.  A slot filled with 0x7FFFFFFF instead
+// lets every pixel that reads it before its region's minimum lands make
+// its atomic (3x the scatter's time at 720p on an H100), and reducing a
+// warp's lanes by root first (__match_any_sync) costs more than it saves
+// where few pixels lower a slot.  A seam round moves 16 bytes a pixel of
+// one row and touches a slot a region that crosses the seam: it is bound
+// by its launch, a few microseconds.
 //
 // The lookup is bound by device memory (8 bytes read and 4
 // written a pixel): each thread moves four ids and four results as 16-byte
@@ -316,24 +336,72 @@ __global__ void resolve_orphans_kernel(const int32_t* __restrict__ substitute,
     out[i] = s == UNASSIGNED ? 0 : s;
 }
 
-__global__ void pm_scatter(const int32_t* __restrict__ roots,
-                           const int32_t* __restrict__ m0, int32_t* out,
+constexpr int32_t kBig = 0x7FFFFFFF;
+
+// table[p] = m0[p] at a root (roots[p] == p), 0x7FFFFFFF elsewhere.  vec:
+// roots, m0 and table are 16-byte aligned, so quads go as int4; a grid of
+// a few blocks per SM strides over the pixels
+__device__ __forceinline__ int32_t own_seed(int r, int v, int p) {
+    return r == p ? v : kBig;
+}
+
+template <bool vec>
+__global__ void rt_init(const int32_t* __restrict__ roots,
+                        const int32_t* __restrict__ m0,
+                        int32_t* __restrict__ table, int n) {
+    const int stride = gridDim.x * blockDim.x;
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    int scalar_from = 0;
+    if (vec) {
+        const int quads = n >> 2;
+        for (int q = t; q < quads; q += stride) {
+            const int4 r = __ldg(reinterpret_cast<const int4*>(roots) + q);
+            const int4 v = __ldg(reinterpret_cast<const int4*>(m0) + q);
+            const int p = q << 2;
+            reinterpret_cast<int4*>(table)[q] = make_int4(
+                own_seed(r.x, v.x, p), own_seed(r.y, v.y, p + 1),
+                own_seed(r.z, v.z, p + 2), own_seed(r.w, v.w, p + 3));
+        }
+        scalar_from = quads << 2;
+    }
+    for (int p = scalar_from + t; p < n; p += stride)
+        table[p] = own_seed(__ldg(roots + p), __ldg(m0 + p), p);
+}
+
+__global__ void rt_scatter(const int32_t* __restrict__ roots,
+                           const int32_t* __restrict__ m0, int32_t* table,
                            int n) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= n) return;
     const int r = roots[p];
-    if (r == p) return;
+    if (r == p) return;  // rt_init put the root's own seed in its slot
     // the slot only decreases, so a pixel whose seed is not below what it
     // reads (a stale value is larger) has nothing to add: most pixels of a
     // region skip the atomic on one contended address
     const int v = m0[p];
-    if (v < *(volatile const int32_t*)(out + r)) atomicMin(out + r, v);
+    if (v < *(volatile const int32_t*)(table + r)) atomicMin(table + r, v);
 }
 
-__global__ void pm_gather(const int32_t* __restrict__ roots, int32_t* out,
-                          int n) {
-    int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p < n) out[p] = out[roots[p]];
+// every thread reaches the vote: blockDim is a multiple of 32.  A root
+// outside the table is skipped (the wrappers never pass one).
+__global__ void seam_min_kernel(int32_t* table,
+                                const int32_t* __restrict__ roots_row,
+                                const int32_t* __restrict__ lab_row,
+                                const int32_t* __restrict__ lab_nb,
+                                const int32_t* __restrict__ val_nb,
+                                int32_t* changed, int stamp, int w,
+                                int table_size) {
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    bool lowered = false;
+    if (x < w && lab_row[x] == lab_nb[x]) {
+        const int r = roots_row[x];
+        const int v = val_nb[x];
+        if ((unsigned)r < (unsigned)table_size &&
+            v < *(volatile const int32_t*)(table + r))
+            lowered = atomicMin(table + r, v) > v;
+    }
+    if (__any_sync(0xFFFFFFFFu, lowered) && (threadIdx.x & 31) == 0)
+        *changed = stamp;
 }
 
 int sm_count() {
@@ -345,6 +413,37 @@ int sm_count() {
         if (count <= 0) count = 1;
     }
     return count;
+}
+
+void region_table(const int32_t* m0, const int32_t* roots, int32_t* table,
+                  int n, cudaStream_t s) {
+    const int threads = 256;
+    const bool vec = (((uintptr_t)m0 | (uintptr_t)roots | (uintptr_t)table) &
+                      15) == 0;
+    int blocks = ((vec ? (n + 3) / 4 : n) + threads - 1) / threads;
+    if (blocks > 8 * sm_count()) blocks = 8 * sm_count();
+    if (vec)
+        rt_init<true><<<blocks, threads, 0, s>>>(roots, m0, table, n);
+    else
+        rt_init<false><<<blocks, threads, 0, s>>>(roots, m0, table, n);
+    rt_scatter<<<(n + threads - 1) / threads, threads, 0, s>>>(roots, m0,
+                                                                table, n);
+}
+
+void launch_lookup(const int32_t* ids, const int32_t* table, int32_t* out,
+                   int n, int table_size, cudaStream_t s) {
+    const int threads = 256;
+    bool vec = (((uintptr_t)ids | (uintptr_t)out) & 15) == 0;
+    int work = vec ? (n + 3) / 4 : n;
+    int blocks = (work + threads - 1) / threads;
+    int cap = 8 * sm_count();
+    if (blocks > cap) blocks = cap;
+    if (vec)
+        lookup_kernel<true><<<blocks, threads, 0, s>>>(ids, table, out, n,
+                                                        table_size);
+    else
+        lookup_kernel<false><<<blocks, threads, 0, s>>>(ids, table, out, n,
+                                                         table_size);
 }
 
 }  // namespace
@@ -373,42 +472,54 @@ extern "C" int fstt_cc(const void* labels, void* out, int H, int W,
 }
 
 // m0: int32 [n] seed; roots: int32 [n], the components of the labels
-// (fstt_cc); out: int32 [n], the minimum of m0 over each pixel's region
+// (fstt_cc); table: int32 [n], the minimum of m0 over the region at each
+// root's slot, 0x7FFFFFFF at every other slot
+extern "C" int fstt_region_table(const void* m0, const void* roots,
+                                 void* table, int n, void* stream) {
+    if (n > 0)
+        region_table((const int32_t*)m0, (const int32_t*)roots,
+                     (int32_t*)table, n, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}
+
+// table: int32 [table_size], lowered in place; roots_row, lab_row, lab_nb,
+// val_nb: int32 [w], one edge row of a slab and the row across its seam;
+// changed: int32 [1], set to stamp where a slot went down
+extern "C" int fstt_seam_min(void* table, const void* roots_row,
+                             const void* lab_row, const void* lab_nb,
+                             const void* val_nb, void* changed, int stamp,
+                             int w, int table_size, void* stream) {
+    if (w > 0) {
+        const int threads = 256;
+        seam_min_kernel<<<(w + threads - 1) / threads, threads, 0,
+                          (cudaStream_t)stream>>>(
+            (int32_t*)table, (const int32_t*)roots_row,
+            (const int32_t*)lab_row, (const int32_t*)lab_nb,
+            (const int32_t*)val_nb, (int32_t*)changed, stamp, w, table_size);
+    }
+    return (int)cudaGetLastError();
+}
+
+// m0, roots as fstt_region_table; table: int32 [n] scratch; out: int32
+// [n], the minimum of m0 over each pixel's region
 extern "C" int fstt_propagate_min(const void* m0, const void* roots,
-                                  void* out, int n, void* stream) {
+                                  void* table, void* out, int n,
+                                  void* stream) {
     if (n > 0) {
         cudaStream_t s = (cudaStream_t)stream;
-        cudaError_t err = cudaMemcpyAsync(out, m0, (size_t)n * 4,
-                                          cudaMemcpyDeviceToDevice, s);
-        if (err != cudaSuccess) return (int)err;
-        const int threads = 256, blocks = (n + threads - 1) / threads;
-        pm_scatter<<<blocks, threads, 0, s>>>(
-            (const int32_t*)roots, (const int32_t*)m0, (int32_t*)out, n);
-        pm_gather<<<blocks, threads, 0, s>>>((const int32_t*)roots,
-                                             (int32_t*)out, n);
+        region_table((const int32_t*)m0, (const int32_t*)roots,
+                     (int32_t*)table, n, s);
+        launch_lookup((const int32_t*)roots, (const int32_t*)table,
+                      (int32_t*)out, n, n, s);
     }
     return (int)cudaGetLastError();
 }
 
 extern "C" int fstt_lookup(const void* ids, const void* table, void* out,
                            int n, int table_size, void* stream) {
-    if (n > 0) {
-        const int threads = 256;
-        bool vec = (((uintptr_t)ids | (uintptr_t)out) & 15) == 0;
-        int work = vec ? (n + 3) / 4 : n;
-        int blocks = (work + threads - 1) / threads;
-        int cap = 8 * sm_count();
-        if (blocks > cap) blocks = cap;
-        cudaStream_t s = (cudaStream_t)stream;
-        if (vec)
-            lookup_kernel<true><<<blocks, threads, 0, s>>>(
-                (const int32_t*)ids, (const int32_t*)table, (int32_t*)out, n,
-                table_size);
-        else
-            lookup_kernel<false><<<blocks, threads, 0, s>>>(
-                (const int32_t*)ids, (const int32_t*)table, (int32_t*)out, n,
-                table_size);
-    }
+    if (n > 0)
+        launch_lookup((const int32_t*)ids, (const int32_t*)table,
+                      (int32_t*)out, n, table_size, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

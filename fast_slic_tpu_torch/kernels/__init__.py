@@ -66,6 +66,15 @@ KERNELS = (
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
            "(propagate_min_pallas)"),
+    # its per-region form, and one seam of the sharded CCA's fixpoint
+    Kernel("region_table", _cca.region_table, "cuda",
+           "fast_slic_tpu_torch/csrc/cca.cu",
+           "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
+           "(propagate_min_pallas)"),
+    Kernel("seam_min", _cca.seam_min, "cuda",
+           "fast_slic_tpu_torch/csrc/cca.cu",
+           "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
+           "(propagate_min_pallas)"),
     # not TPU kernels: the JAX package runs this function as host C++; the
     # walk over the windows, and its bucketing by cell
     Kernel("knn", _knn.knn, "cuda",

@@ -47,7 +47,9 @@ _SIGNATURES = {
     "fstt_segment_sum": [P, P, P, I, I, I, P],
     "fstt_framed_segment_sum": [P, P, P, I, I, I, I, P],
     "fstt_cc": [P, P, I, I, P],
-    "fstt_propagate_min": [P, P, P, I, P],
+    "fstt_region_table": [P, P, P, I, P],
+    "fstt_seam_min": [P, P, P, P, P, P, I, I, I, P],
+    "fstt_propagate_min": [P, P, P, P, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
     "fstt_resolve_orphans": [P, P, P, I, P],
     "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,

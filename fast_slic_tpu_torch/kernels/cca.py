@@ -1,14 +1,17 @@
 """Wrappers of the CCA kernels (``csrc/cca.cu``): connected components,
 which replaces ``fast_slic_tpu/pallas/cca_tpu.py:_cc_pass_kernel``; the
 minimum of any seed over each of those components, which replaces the
-same kernel as ``propagate_min_pallas`` calls it; the table lookup, which
+same kernel as ``propagate_min_pallas`` calls it, per pixel
+(``propagate_min``) or kept per component in a table indexed by the
+component's root (``region_table``), and that table lowered across one
+seam row of a sharded image (``seam_min``); the table lookup, which
 replaces ``fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel``; and the
 orphan chase, which replaces the loop of those lookups in
 ``fast_slic_tpu/ops/cca.py:_resolve_orphans``.
 
 The plain PyTorch versions are the JAX package's non-TPU branches:
 neighbour-min sweeps with pointer jumping
-(``fast_slic_tpu/ops/cca.py:connected_components``), a segment minimum, a
+(``fast_slic_tpu/ops/cca.py:connected_components``), segment minima, a
 gather, and pointer doubling.  A CPU tensor goes to them; a CUDA tensor
 launches the kernel.
 """
@@ -24,7 +27,8 @@ from . import _lib
 
 __all__ = ["connected_components", "connected_components_plain", "lookup",
            "lookup_plain", "propagate_min", "propagate_min_plain",
-           "resolve_orphans", "resolve_orphans_plain"]
+           "region_table", "region_table_plain", "resolve_orphans",
+           "resolve_orphans_plain", "seam_min", "seam_min_plain"]
 
 _BIG = 0x7FFFFFFF
 
@@ -97,8 +101,9 @@ def propagate_min_plain(m0, roots):
 
 def propagate_min(m0, roots):
     """Dispatch the region minimum by device; see
-    :func:`propagate_min_plain`.  On the card one call is a device copy
-    and two kernels."""
+    :func:`propagate_min_plain`.  On the card one call is the region
+    table's two kernels (:func:`region_table`) and the lookup
+    ``table[roots]``, in one C call."""
     if m0.ndim != 2 or roots.shape != m0.shape:
         raise ValueError("m0 and roots must be [H, W]")
     dev = m0.device
@@ -108,14 +113,92 @@ def propagate_min(m0, roots):
         raise ValueError("unsupported device %s" % dev)
     _lib.check(m0, "m0", torch.int32, dev)
     _lib.check(roots, "roots", torch.int32, dev)
+    table = torch.empty(m0.numel(), dtype=torch.int32, device=dev)
     out = torch.empty_like(m0)
     _lib.launch("fstt_propagate_min", dev, m0.data_ptr(), roots.data_ptr(),
-                out.data_ptr(), m0.numel())
+                table.data_ptr(), out.data_ptr(), m0.numel())
     propagate_min.launches += 1
     return out
 
 
 propagate_min.launches = 0
+
+
+def region_table_plain(m0, roots):
+    """int32 seed m0 and the regions' roots (:func:`connected_components`
+    of the labels), both [H, W] -> int32 [H*W] table: slot r holds the
+    minimum of m0 over the region whose root is pixel r; every slot that
+    is no root holds 0x7FFFFFFF."""
+    m = m0.reshape(-1)
+    return torch.full_like(m, _BIG).scatter_reduce_(
+        0, roots.reshape(-1).long(), m, "amin")
+
+
+def region_table(m0, roots):
+    """Dispatch the region table by device; see :func:`region_table_plain`.
+    On the card one call is two kernels: a fill and one atomic-min pass."""
+    if m0.ndim != 2 or roots.shape != m0.shape:
+        raise ValueError("m0 and roots must be [H, W]")
+    dev = m0.device
+    if dev.type == "cpu":
+        return region_table_plain(m0, roots)
+    if dev.type != "cuda":
+        raise ValueError("unsupported device %s" % dev)
+    _lib.check(m0, "m0", torch.int32, dev)
+    _lib.check(roots, "roots", torch.int32, dev)
+    table = torch.empty(m0.numel(), dtype=torch.int32, device=dev)
+    _lib.launch("fstt_region_table", dev, m0.data_ptr(), roots.data_ptr(),
+                table.data_ptr(), m0.numel())
+    region_table.launches += 1
+    return table
+
+
+region_table.launches = 0
+
+
+def seam_min_plain(table, roots_row, lab_row, lab_nb, val_nb, changed,
+                   stamp: int):
+    """One seam of a sharded image, in place: for each pixel x of a slab's
+    edge row whose label ``lab_row[x]`` equals the label across the seam
+    ``lab_nb[x]``, the slot ``table[roots_row[x]]`` takes the minimum with
+    the neighbour's value ``val_nb[x]``.  ``changed`` (int32, one element)
+    is set to ``stamp`` if a slot went down, and left as it is otherwise.
+    Rows: int32 [W]; table: int32 [n], indexed by the slab's roots."""
+    r = roots_row.long()
+    v = torch.where(lab_row == lab_nb, val_nb, _BIG)
+    lowered = torch.any(v < table[r])
+    table.scatter_reduce_(0, r, v, "amin")
+    changed.masked_fill_(lowered, stamp)
+
+
+def seam_min(table, roots_row, lab_row, lab_nb, val_nb, changed,
+             stamp: int):
+    """Dispatch one seam's minimum by device; see :func:`seam_min_plain`.
+    On the card one launch, a thread a pixel of the row."""
+    if table.ndim != 1 or roots_row.ndim != 1 or any(
+            t.shape != roots_row.shape for t in (lab_row, lab_nb, val_nb)):
+        raise ValueError("table and the four rows must be 1-D, the rows "
+                         "of one length")
+    if changed.numel() != 1:
+        raise ValueError("changed must hold one int32")
+    dev = table.device
+    if dev.type == "cpu":
+        return seam_min_plain(table, roots_row, lab_row, lab_nb, val_nb,
+                              changed, stamp)
+    if dev.type != "cuda":
+        raise ValueError("unsupported device %s" % dev)
+    for t, name in ((table, "table"), (roots_row, "roots_row"),
+                    (lab_row, "lab_row"), (lab_nb, "lab_nb"),
+                    (val_nb, "val_nb"), (changed, "changed")):
+        _lib.check(t, name, torch.int32, dev)
+    _lib.launch("fstt_seam_min", dev, table.data_ptr(), roots_row.data_ptr(),
+                lab_row.data_ptr(), lab_nb.data_ptr(), val_nb.data_ptr(),
+                changed.data_ptr(), int(stamp), roots_row.shape[0],
+                table.shape[0])
+    seam_min.launches += 1
+
+
+seam_min.launches = 0
 
 
 def lookup_plain(ids, table):

@@ -8,7 +8,10 @@ ids those of the Pallas propagation kernel in interpret mode; its tie
 escalation the labels of the union-find oracle ``enforce_connectivity_np``;
 and its orphan chase (``resolve_orphans_plain``) the JAX package's
 ``_resolve_orphans`` with gathers, on random orphan DAGs, a 3000-hop chain
-and the flattened tables of three stacked frames.  Exact.
+and the flattened tables of three stacked frames.  The sharded CCA's
+region table (``region_table``) and seam step (``seam_min``, with its
+changed flag) must equal a numpy loop over the pixels on random, spiral
+and serpentine maps.  Exact.
 """
 
 import numpy as np
@@ -26,8 +29,11 @@ from fast_slic_tpu.pallas.cca_tpu import (connected_components_pallas,
                                           propagate_min_pallas)
 from fast_slic_tpu_torch.config import UNASSIGNED
 from fast_slic_tpu_torch.kernels.cca import (connected_components, lookup,
+                                             region_table,
+                                             region_table_plain,
                                              resolve_orphans,
-                                             resolve_orphans_plain)
+                                             resolve_orphans_plain, seam_min,
+                                             seam_min_plain)
 from fast_slic_tpu_torch.ops.cca import (enforce_connectivity_flagged,
                                          heap_select_topk,
                                          selection_rerun_device)
@@ -229,6 +235,87 @@ def test_lookup_is_a_gather(rng):
     ids = rng.integers(0, 500, size=(30, 40)).astype(np.int32)
     got = lookup(torch.from_numpy(ids), torch.from_numpy(table))
     np.testing.assert_array_equal(got.numpy(), table[ids])
+
+
+_BIG = 0x7FFFFFFF
+
+
+def _region_case(rng, case):
+    """(labels int32 [H, W], seed int32 [H, W]) for the region table."""
+    H, W = 40, 56
+    if case == "spiral":
+        labels = _spiral(H, W)
+    elif case == "serpentine":
+        labels = _serpentine(H, W)
+    else:
+        labels = rng.integers(0, 3, size=(H, W)).astype(np.int32)
+    if case == "sparse_seed":   # _BIG but at a few pixels, as leader ranks
+        m0 = np.full(H * W, _BIG, np.int32)
+        keep = rng.choice(H * W, size=9, replace=False)
+        m0[keep] = rng.integers(0, 1000, size=9)
+    else:
+        m0 = rng.permutation(H * W).astype(np.int32)
+    return labels, m0.reshape(H, W)
+
+
+def _region_table_loop(m0, roots):
+    table = np.full(m0.size, _BIG, np.int64)
+    for p, (r, v) in enumerate(zip(roots.ravel(), m0.ravel())):
+        table[r] = min(table[r], v)
+    return table
+
+
+def _seam_min_loop(table, roots_row, lab_row, lab_nb, val_nb, changed,
+                   stamp):
+    table = table.astype(np.int64).copy()
+    for x in range(roots_row.shape[0]):
+        r = roots_row[x]
+        if lab_row[x] == lab_nb[x] and val_nb[x] < table[r]:
+            table[r] = val_nb[x]
+            changed = stamp
+    return table, changed
+
+
+@pytest.mark.parametrize("case", ["random", "spiral", "serpentine",
+                                  "sparse_seed"])
+def test_region_table_and_seam_min_match_loop(rng, case):
+    """The region table over a slab's roots, then one seam of it: the top
+    rows of the map are the slab, the row below them the neighbour's edge
+    row, whose values are drawn around the table's own."""
+    labels, m0 = _region_case(rng, case)
+    h = labels.shape[0] // 2
+    lab_t = torch.from_numpy(labels[:h].copy())
+    roots = connected_components(lab_t)
+    m0_t = torch.from_numpy(m0[:h].copy())
+    want = _region_table_loop(m0[:h], roots.numpy())
+    table = region_table_plain(m0_t, roots)
+    assert table.dtype == torch.int32 and table.shape == (h * labels.shape[1],)
+    np.testing.assert_array_equal(table.numpy(), want)
+    np.testing.assert_array_equal(region_table(m0_t, roots).numpy(), want)
+
+    roots_row = roots[-1]
+    lab_row = lab_t[-1]
+    lab_nb = torch.from_numpy(labels[h].copy())
+    base = table[roots_row.long()].numpy().astype(np.int64)
+    val_nb = np.clip(base + rng.integers(-50, 50, size=base.shape), 0, _BIG)
+    # one pixel where the labels meet surely lowers its slot
+    val_nb[np.flatnonzero(lab_row.numpy() == lab_nb.numpy())[0]] = -1
+    val_nb = torch.from_numpy(val_nb.astype(np.int32))
+    for stamp, nb in ((5, lab_nb), (6, lab_nb + 7)):   # 2nd: no label meets
+        exp_table, exp_changed = _seam_min_loop(
+            table.numpy(), roots_row.numpy(), lab_row.numpy(), nb.numpy(),
+            val_nb.numpy(), 3, stamp)
+        for fn in (seam_min_plain, seam_min):
+            got = table.clone()
+            changed = torch.tensor(3, dtype=torch.int32)
+            fn(got, roots_row, lab_row, nb, val_nb, changed, stamp)
+            np.testing.assert_array_equal(got.numpy(), exp_table)
+            assert int(changed) == exp_changed
+        if stamp == 5:
+            assert exp_changed == 5      # some slot went down
+        else:
+            np.testing.assert_array_equal(exp_table, table.numpy())
+            assert exp_changed == 3
 
 
 def _orphan_dag(rng, n):

@@ -41,9 +41,11 @@ plain version (also in ranges of cells); the adjacency (a hot node past the
 on the card those on the CPU; the CRF's class sum on the card the loop's
 bits; and ``SimpleCRF`` at 720p (N=1600, C=21, four frames) the CPU's and
 the JAX package's posteriors within rtol 2e-4, atol 1e-6.  The region
-minimum of a seed (``propagate_min``, the sharded CCA's kernel) must equal
-its plain version on random, serpentine, superpixel and one-row or
-one-column maps, over the kernel's roots; four shards of one card
+minimum of a seed per pixel (``propagate_min``) and per region
+(``region_table``), and one seam of the sharded CCA's fixpoint
+(``seam_min``, its changed flag too, and a seam where no label meets)
+must equal their plain versions on random, serpentine, superpixel and
+one-row or one-column maps, over the kernel's roots; four shards of one card
 (``ShardedSlicExplicit``) must equal ``SlicAvx2`` at 720p, and a batch
 over a mesh's data axis the batch without one.
 """
@@ -1288,13 +1290,15 @@ def test_enforce_connectivity_on_gpu_matches_cpu(cuda, rng, case):
     np.testing.assert_array_equal(got, want)
 
 
-# the region minimum of any seed: the sharded CCA's three seeds (pixel ids,
-# leader ranks, a seed that is _BIG except at leaders) on real-like maps,
-# over the kernel's roots against the plain version's
-@pytest.mark.parametrize("case", ["random_ids", "serpentine_ranks",
-                                  "superpixels_sparse", "row_1x1000",
-                                  "col_1000x1", "unassigned_big"])
-def test_propagate_min_kernel_matches_plain(cuda, rng, case):
+# the region minimum of any seed: the sharded CCA's seeds (pixel ids, leader
+# ranks, a seed that is _BIG except at leaders) on real-like maps, over the
+# kernel's roots against the plain version's
+REGION_MIN_CASES = ["random_ids", "serpentine_ranks", "superpixels_sparse",
+                    "row_1x1000", "col_1000x1", "unassigned_big"]
+
+
+def _region_min_case(rng, case):
+    """(labels int32 [H, W], seed int32 [H * W])."""
     big = 0x7FFFFFFF
     if case == "random_ids":
         labels = rng.integers(0, 5, size=(301, 517))
@@ -1316,6 +1320,12 @@ def test_propagate_min_kernel_matches_plain(cuda, rng, case):
         m0[keep] = rng.integers(0, 1 << 30, size=int(keep.sum()))
     else:
         m0 = np.arange(n, dtype=np.int32)
+    return labels, m0
+
+
+@pytest.mark.parametrize("case", REGION_MIN_CASES)
+def test_propagate_min_kernel_matches_plain(cuda, rng, case):
+    labels, m0 = _region_min_case(rng, case)
     lab_t = torch.from_numpy(labels).to(cuda)
     m0_t = torch.from_numpy(m0.reshape(labels.shape)).to(cuda)
     roots = cca.connected_components(lab_t)
@@ -1324,6 +1334,57 @@ def test_propagate_min_kernel_matches_plain(cuda, rng, case):
     assert cca.propagate_min.launches == before + 1
     _eq(got, cca.propagate_min_plain(
         m0_t, cca.connected_components_plain(lab_t)))
+
+
+@pytest.mark.parametrize("case", REGION_MIN_CASES)
+def test_region_table_kernel_matches_plain(cuda, rng, case):
+    labels, m0 = _region_min_case(rng, case)
+    lab_t = torch.from_numpy(labels).to(cuda)
+    m0_t = torch.from_numpy(m0.reshape(labels.shape)).to(cuda)
+    roots = cca.connected_components(lab_t)
+    before = cca.region_table.launches
+    got = cca.region_table(m0_t, roots)
+    assert cca.region_table.launches == before + 1
+    _eq(got, cca.region_table_plain(
+        m0_t, cca.connected_components_plain(lab_t)))
+
+
+@pytest.mark.parametrize("case", REGION_MIN_CASES)
+def test_seam_min_kernel_matches_plain(cuda, rng, case):
+    """One seam: the map's top half is the slab (its region table), the row
+    below it the neighbour's edge row with values drawn around the table's
+    own; the flag as well as the table equal the plain version's.  Where
+    no label meets across the seam the table and the flag stay as they
+    were."""
+    labels, m0 = _region_min_case(rng, case)
+    H, W = labels.shape
+    h = max(1, H // 2)
+    slab = torch.from_numpy(labels[:h].copy()).to(cuda)
+    roots = cca.connected_components(slab)
+    table = cca.region_table(
+        torch.from_numpy(m0.reshape(H, W)[:h].copy()).to(cuda), roots)
+    lab_nb = labels[h] if H > 1 else rng.permutation(labels[0])
+    lab_nb = torch.from_numpy(np.ascontiguousarray(lab_nb)).to(cuda)
+    base = table[roots[-1].long()].cpu().numpy().astype(np.int64)
+    val_nb = torch.from_numpy(np.clip(
+        base + rng.integers(-1000, 1000, size=W), 0, 0x7FFFFFFF)
+        .astype(np.int32)).to(cuda)
+    for stamp, nb in ((4, lab_nb), (9, slab[-1] + 1)):
+        outs = []
+        for fn in (cca.seam_min, cca.seam_min_plain):
+            t = table.clone()
+            changed = torch.zeros((), dtype=torch.int32, device=cuda)
+            before = cca.seam_min.launches
+            fn(t, roots[-1], slab[-1], nb, val_nb, changed, stamp)
+            if fn is cca.seam_min:
+                assert cca.seam_min.launches == before + 1
+            outs.append((t, changed))
+        (t, c), (t_ref, c_ref) = outs
+        _eq(t, t_ref)
+        _eq(c, c_ref)
+        if stamp == 9:
+            _eq(t, table)
+            assert int(c) == 0
 
 
 def test_mesh_on_one_card_matches_single_device(cuda, rng):

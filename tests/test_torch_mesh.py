@@ -5,6 +5,12 @@ port's single-device path, on the CPU.
   equals the JAX ``propagate_min_pallas`` in interpret mode on
   seeded 24x40 maps: random labels, a serpentine region, a seed that is
   _BIG except at a few pixels;
+* the sharded CCA's halo propagation (``_halo_propagate`` over region
+  tables) on D = 2, 4 and 8 row shards equals ``propagate_min_pallas`` over
+  the joined image, with the pixel-id and the leader-rank seed, on random
+  labels and on a column serpentine that crosses every seam many times;
+  its rounds touch only edge rows, and a propagation makes one pass over
+  each slab (the final gather), also inside ``ShardedSlicExplicit``;
 * ``make_mesh``: shapes, the JAX package's ValueError, and no GPU -> error;
 * ``ShardedSlicExplicit`` (every variant, preemptive, a warm start carried
   and one set through ``state``), ``ShardedSlic`` and ``BatchedSlic(mesh=
@@ -21,6 +27,7 @@ port's single-device path, on the CPU.
   test_explicit_spatial_uses_ppermute_not_allgather).
 """
 
+import functools
 import os
 
 import numpy as np
@@ -33,9 +40,11 @@ import jax.numpy as jnp
 from fast_slic_tpu.pallas.cca_tpu import propagate_min_pallas
 from fast_slic_tpu_torch import (Slic, SlicRealDist, SlicRealDistL2,
                                  SlicRealDistNoQ)
+from fast_slic_tpu_torch.kernels import cca
 from fast_slic_tpu_torch.kernels.cca import (connected_components_plain,
                                              propagate_min,
-                                             propagate_min_plain)
+                                             propagate_min_plain,
+                                             region_table_plain)
 from fast_slic_tpu_torch.parallel import spatial_shardmap as ssm
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 from fast_slic_tpu_torch.parallel.mesh import Mesh, make_mesh
@@ -101,6 +110,108 @@ def test_propagate_min_matches_jax(case):
     np.testing.assert_array_equal(propagate_min(m0_t, roots).numpy(), want)
     if case == "serpentine":
         assert len(np.unique(want[lab == 1])) == 1
+
+
+# -- the sharded CCA's halo propagation -------------------------------------
+
+def _columns(H, W):
+    """Label 1 in every fourth column, neighbouring columns joined at the
+    bottom and top rows in turn: one region that crosses every row seam
+    W/4 times, in label 0."""
+    lab = np.zeros((H, W), np.int32)
+    lab[:, ::4] = 1
+    for i, c in enumerate(range(0, W - 4, 4)):
+        lab[H - 1 if i % 2 == 0 else 0, c:c + 5] = 1
+    return lab
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_region_minima(case):
+    """(labels [48, 40], the JAX package's region minimum of the pixel ids,
+    of the leader ranks (the CCA's second seed)) over the whole image."""
+    H, W = 48, 40
+    lab = (_columns(H, W) if case == "columns" else
+           np.random.default_rng(5).integers(0, 3, size=(H, W))
+           .astype(np.int32))
+    ids = np.arange(H * W, dtype=np.int32).reshape(H, W)
+    first = np.asarray(propagate_min_pallas(jnp.asarray(lab),
+                                            jnp.asarray(ids), interpret=True))
+    leaders = first == ids
+    ranks = np.where(leaders, np.cumsum(leaders).reshape(H, W) - 1,
+                     _BIG).astype(np.int32)
+    second = np.asarray(propagate_min_pallas(
+        jnp.asarray(lab), jnp.asarray(ranks), interpret=True))
+    return lab, {"pixel_ids": (ids, first), "ranks": (ranks, second)}
+
+
+@pytest.mark.parametrize("seed", ["pixel_ids", "ranks"])
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("case", ["columns", "random"])
+def test_halo_propagate_matches_jax(monkeypatch, case, D, seed):
+    lab, seeds = _jax_region_minima(case)
+    m0, want = seeds[seed]
+    H, W = lab.shape
+    Hl = H // D
+    labs = [torch.from_numpy(lab[d * Hl:(d + 1) * Hl].copy())
+            for d in range(D)]
+    roots = [connected_components_plain(x) for x in labs]
+    # the sharded CCA passes both seeds as their own region tables: they
+    # agree with the built tables at every root
+    tables = []
+    for d, r in enumerate(roots):
+        slab = torch.from_numpy(m0[d * Hl:(d + 1) * Hl].copy())
+        at = r.reshape(-1).long()
+        np.testing.assert_array_equal(region_table_plain(slab, r)[at],
+                                      slab.reshape(-1)[at])
+        tables.append(slab.reshape(-1))
+    gathered, seams = [], []
+
+    def lookup(ids, table):
+        gathered.append(ids.numel())
+        return cca.lookup(ids, table)
+
+    def seam_min(table, roots_row, *rest):
+        seams.append(roots_row.numel())
+        return cca.seam_min(table, roots_row, *rest)
+
+    monkeypatch.setattr(ssm, "lookup", lookup)
+    monkeypatch.setattr(ssm, "seam_min", seam_min)
+    rounds = []
+    got = ssm._halo_propagate(_cpu_mesh(space=D), labs, tables, roots,
+                              rounds)
+    np.testing.assert_array_equal(np.concatenate([g.numpy() for g in got]),
+                                  want)
+    # each round gathers two rows a shard and lowers across each seam from
+    # both sides; the one pass over a slab is the final gather
+    (n,) = rounds
+    assert gathered == [2 * W] * (D * n) + [Hl * W] * D
+    assert seams == [W] * (2 * (D - 1) * n)
+    if case == "columns":   # the region walks the seams column by column
+        assert n > W // 4
+
+
+@pytest.mark.parametrize("preemptive", [False, True])
+def test_one_slab_pass_a_propagation(monkeypatch, image_factory, preemptive):
+    """Inside ShardedSlicExplicit the CCA gathers a whole slab three times
+    a shard (each propagation's result and the relabel) and calls no
+    per-pixel region minimum."""
+    H, W, D = 64, 64, 8
+    sizes = []
+
+    def lookup(ids, table):
+        sizes.append(ids.numel())
+        return cca.lookup(ids, table)
+
+    monkeypatch.setattr(ssm, "lookup", lookup)
+    assert not hasattr(ssm, "propagate_min")
+    sh = ShardedSlicExplicit(num_components=K, min_size_factor=MSF,
+                             preemptive=preemptive, mesh=_cpu_mesh(space=D))
+    sh.iterate(image_factory(H, W), max_iter=3)
+    slab = (H // D) * W
+    assert len(sh.last_seam_rounds) == 2
+    assert sorted(set(sizes)) == [2 * W, slab]
+    assert sizes.count(slab) == 3 * D
+    assert sizes.count(2 * W) == D * sum(sh.last_seam_rounds)
 
 
 # -- make_mesh -------------------------------------------------------------
