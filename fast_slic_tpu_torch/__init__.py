@@ -68,6 +68,7 @@ def enforce_connectivity(assignments, min_threshold, device="cuda"):
     from .config import UNASSIGNED
     from .model import resolve_device
     from .ops.cca import enforce_connectivity_exact
+    from .utils.timing import to_device, to_host
 
     arr = np.asarray(assignments)
     u = arr.astype(np.int64) & 0xFFFF
@@ -75,8 +76,9 @@ def enforce_connectivity(assignments, min_threshold, device="cuda"):
     K = int(labels.max()) + 1 if labels.size else 1
     dev = resolve_device(device)
     out, _ = enforce_connectivity_exact(
-        torch.from_numpy(u.astype(np.int32)).to(dev), K, int(min_threshold))
-    out = out.cpu().numpy().astype(arr.dtype)
+        to_device(torch.from_numpy(u.astype(np.int32)), dev), K,
+        int(min_threshold))
+    out = to_host(out).numpy().astype(arr.dtype)
     try:
         arr[...] = out
         return arr

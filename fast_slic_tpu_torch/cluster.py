@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import MAX_NUM_COMPONENTS
+from .utils.timing import to_device, to_host
 
 _FIELDS = ("y", "x", "r", "g", "b", "num_members", "is_active",
            "is_updatable")
@@ -57,7 +58,7 @@ class Clusters:
         out = []
         for f, dt in zip(self.fields(), _NP_DTYPES):
             if isinstance(f, torch.Tensor):
-                f = f.detach().cpu().numpy()
+                f = to_host(f.detach()).numpy()
             out.append(np.asarray(f).astype(dt, copy=False))
         return Clusters(*out)
 
@@ -69,7 +70,7 @@ class Clusters:
                 if dt == torch.int64:
                     a = a.astype(np.int64)
                 f = torch.from_numpy(a)
-            out.append(f.to(device=device, dtype=dt))
+            out.append(to_device(f, device, dt))
         return Clusters(*out)
 
     def copy(self) -> "Clusters":

@@ -2,15 +2,17 @@
 family.
 
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor (or raises); it counts its launches in a plain
-integer attribute ``launches``.  :data:`KERNELS` lists them with the source
-and the TPU kernel each replaces.
+its kernel for a CUDA tensor (or raises) through ``_lib.launch``, which
+counts the launches of each C entry point in ``utils.timing.COUNTS``.
+:data:`KERNELS` lists them with the entry point, the source and the TPU
+kernel each replaces.
 """
 
 from __future__ import annotations
 
 import collections
 
+from ..utils.timing import COUNTS
 from . import assign as _assign
 from . import assign_float as _assign_float
 from . import cca as _cca
@@ -21,66 +23,71 @@ from . import lsc_feat as _lsc_feat
 from . import segsum as _segsum
 
 Kernel = collections.namedtuple(
-    "Kernel", "name wrapper route source replaces")
+    "Kernel", "name entry wrapper route source replaces")
 
 KERNELS = (
-    Kernel("lab", _lab.rgb_to_lab_planar, "cuda",
+    Kernel("lab", "fstt_lab", _lab.rgb_to_lab_planar, "cuda",
            "fast_slic_tpu_torch/csrc/lab.cu",
            "fast_slic_tpu/pallas/lut_tpu.py:192"),
-    Kernel("assign", _assign.assign, "cuda",
+    Kernel("assign", "fstt_assign", _assign.assign, "cuda",
            "fast_slic_tpu_torch/csrc/assign.cu",
            "fast_slic_tpu/pallas/assign_tpu.py:59"),
-    Kernel("slic_update", _segsum.slic_update, "cuda",
+    Kernel("slic_update", "fstt_slic_update", _segsum.slic_update, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:211"),
-    Kernel("segment_sum", _segsum.segment_sum, "cuda",
+    Kernel("segment_sum", "fstt_segment_sum", _segsum.segment_sum, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:80"),
-    Kernel("connected_components", _cca.connected_components, "cuda",
+    Kernel("connected_components", "fstt_cc",
+           _cca.connected_components, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/cca_tpu.py:145"),
-    Kernel("lookup", _cca.lookup, "cuda",
+    Kernel("lookup", "fstt_lookup", _cca.lookup, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:300"),
     # the chase that called the lookup in a loop, in one launch
-    Kernel("resolve_orphans", _cca.resolve_orphans, "cuda",
+    Kernel("resolve_orphans", "fstt_resolve_orphans",
+           _cca.resolve_orphans, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:300"),
-    Kernel("lsc_feat", _lsc_feat.lsc_color_feats, "cuda",
+    Kernel("lsc_feat", "fstt_lsc_feat", _lsc_feat.lsc_color_feats, "cuda",
            "fast_slic_tpu_torch/csrc/lsc_feat.cu",
            "fast_slic_tpu/pallas/lut_tpu.py:321"),
-    Kernel("assign_float", _assign_float.assign_float, "cuda",
+    Kernel("assign_float", "fstt_assign_float",
+           _assign_float.assign_float, "cuda",
            "fast_slic_tpu_torch/csrc/assign_float.cu",
            "fast_slic_tpu/pallas/assign_tpu.py:255"),
-    Kernel("fsegsum", _fsegsum.float_segsum, "cuda",
+    Kernel("fsegsum", "fstt_fsegsum", _fsegsum.float_segsum, "cuda",
            "fast_slic_tpu_torch/csrc/fsegsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:444"),
-    Kernel("slic_update_masked", _segsum.slic_update_masked, "cuda",
+    Kernel("slic_update_masked", "fstt_slic_update_masked",
+           _segsum.slic_update_masked, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:104"),
-    Kernel("framed_segment_sum", _segsum.framed_segment_sum, "cuda",
+    Kernel("framed_segment_sum", "fstt_framed_segment_sum",
+           _segsum.framed_segment_sum, "cuda",
            "fast_slic_tpu_torch/csrc/segsum.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:90"),
     # the same TPU kernel as the components, with any seed
-    Kernel("propagate_min", _cca.propagate_min, "cuda",
+    Kernel("propagate_min", "fstt_propagate_min", _cca.propagate_min, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
            "(propagate_min_pallas)"),
     # its per-region form, and one seam of the sharded CCA's fixpoint
-    Kernel("region_table", _cca.region_table, "cuda",
+    Kernel("region_table", "fstt_region_table", _cca.region_table, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
            "(propagate_min_pallas)"),
-    Kernel("seam_min", _cca.seam_min, "cuda",
+    Kernel("seam_min", "fstt_seam_min", _cca.seam_min, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/cca_tpu.py:145 _cc_pass_kernel "
            "(propagate_min_pallas)"),
     # not TPU kernels: the JAX package runs this function as host C++; the
     # walk over the windows, and its bucketing by cell
-    Kernel("knn", _knn.knn, "cuda",
+    Kernel("knn", "fstt_knn", _knn.knn, "cuda",
            "fast_slic_tpu_torch/csrc/knn.cu",
            "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
-    Kernel("knn_buckets", _knn.knn_buckets, "cuda",
+    Kernel("knn_buckets", "fstt_knn_buckets", _knn.knn_buckets, "cuda",
            "fast_slic_tpu_torch/csrc/knn.cu",
            "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
 )
@@ -88,8 +95,9 @@ KERNELS = (
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.wrapper.launches = 0
+        COUNTS["launch." + k.entry] = 0
 
 
 def launch_counts() -> dict:
-    return {k.name: k.wrapper.launches for k in KERNELS}
+    """Launches of each kernel since :func:`reset_launches`, by name."""
+    return {k.name: COUNTS["launch." + k.entry] for k in KERNELS}

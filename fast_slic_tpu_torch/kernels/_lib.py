@@ -25,6 +25,8 @@ import time
 
 import torch
 
+from ..utils.timing import COUNTS
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "fast_slic_tpu_torch"
@@ -133,13 +135,14 @@ def stream() -> int:
     return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, launches: int = 1) -> None:
     """Call one C entry point on ``device`` (the card the wrapper's tensors
     lie on), on PyTorch's current stream there; raise if the launch was
     refused.  The card is made the current one for the call when it is
     not, as the shards of a mesh over several cards need.  Pointers are
     passed as ints (``t.data_ptr()``), which the ``c_void_p`` argtypes
-    convert."""
+    convert.  ``launches`` (0 where the entry point skips a pass with no
+    rows) is added to ``utils.timing.COUNTS["launch." + name]``."""
     fn = FUNCS.get(name)
     if fn is None:
         library()
@@ -151,6 +154,7 @@ def launch(name: str, device: torch.device, *args) -> None:
             err = fn(*args, stream())
     if err != 0:
         raise RuntimeError("CUDA kernel %s failed: cudaError %d" % (name, err))
+    COUNTS["launch." + name] += launches
 
 
 def check(t: torch.Tensor, name: str, dtype, device, shape=None):

@@ -130,10 +130,6 @@ def assign(planes, table, cand, assignment, coef, S: int, stride: int,
     _lib.launch("fstt_assign", dev, planes.data_ptr(), table.data_ptr(),
                 cand.data_ptr(), assignment.data_ptr(), md,
                 float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
-                int(bool(manhattan)), table.shape[-2], B)
-    # the launcher skips a pass with no rows (rem >= H)
-    assign.launches += rem < H
+                int(bool(manhattan)), table.shape[-2], B,
+                launches=int(rem < H))  # no launch for a pass with no rows
     return assignment
-
-
-assign.launches = 0

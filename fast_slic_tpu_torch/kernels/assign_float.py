@@ -183,10 +183,6 @@ def assign_float(planes, table, cand, assignment, coef, S: int, stride: int,
                 table.data_ptr(), cp, cand.data_ptr(), assignment.data_ptr(),
                 md, float(np.float32(coef)), H, W, S, GH, GW, C, stride, rem,
                 _VARIANT_CODE[variant], int(bool(manhattan)),
-                table.shape[-2], B)
-    # the launcher skips a pass with no rows (rem >= H)
-    assign_float.launches += rem < H
+                table.shape[-2], B,
+                launches=int(rem < H))  # no launch for a pass with no rows
     return assignment
-
-
-assign_float.launches = 0

@@ -83,11 +83,7 @@ def connected_components(labels):
     H, W = labels.shape
     out = torch.empty((H, W), dtype=torch.int32, device=dev)
     _lib.launch("fstt_cc", dev, labels.data_ptr(), out.data_ptr(), H, W)
-    connected_components.launches += 1
     return out
-
-
-connected_components.launches = 0
 
 
 def propagate_min_plain(m0, roots):
@@ -117,11 +113,7 @@ def propagate_min(m0, roots):
     out = torch.empty_like(m0)
     _lib.launch("fstt_propagate_min", dev, m0.data_ptr(), roots.data_ptr(),
                 table.data_ptr(), out.data_ptr(), m0.numel())
-    propagate_min.launches += 1
     return out
-
-
-propagate_min.launches = 0
 
 
 def region_table_plain(m0, roots):
@@ -149,11 +141,7 @@ def region_table(m0, roots):
     table = torch.empty(m0.numel(), dtype=torch.int32, device=dev)
     _lib.launch("fstt_region_table", dev, m0.data_ptr(), roots.data_ptr(),
                 table.data_ptr(), m0.numel())
-    region_table.launches += 1
     return table
-
-
-region_table.launches = 0
 
 
 def seam_min_plain(table, roots_row, lab_row, lab_nb, val_nb, changed,
@@ -195,10 +183,6 @@ def seam_min(table, roots_row, lab_row, lab_nb, val_nb, changed,
                 lab_row.data_ptr(), lab_nb.data_ptr(), val_nb.data_ptr(),
                 changed.data_ptr(), int(stamp), roots_row.shape[0],
                 table.shape[0])
-    seam_min.launches += 1
-
-
-seam_min.launches = 0
 
 
 def lookup_plain(ids, table):
@@ -220,11 +204,7 @@ def lookup(ids, table):
     out = torch.empty_like(ids)
     _lib.launch("fstt_lookup", dev, ids.data_ptr(), table.data_ptr(),
                 out.data_ptr(), ids.numel(), table.shape[0])
-    lookup.launches += 1
     return out
-
-
-lookup.launches = 0
 
 
 def resolve_orphans_plain(substitute, target):
@@ -258,8 +238,4 @@ def resolve_orphans(substitute, target):
     out = torch.empty_like(substitute)
     _lib.launch("fstt_resolve_orphans", dev, substitute.data_ptr(),
                 target.data_ptr(), out.data_ptr(), substitute.shape[0])
-    resolve_orphans.launches += 1
     return out
-
-
-resolve_orphans.launches = 0

@@ -87,8 +87,4 @@ def float_segsum(ids, mask, vals, num_segments: int, wrow=None):
                 vals.data_ptr(), out.data_ptr(),
                 buf.data_ptr() + 4 * V * bins, n_scratch, N, V, bins,
                 -1 if wrow is None else int(wrow))
-    float_segsum.launches += 1
     return out
-
-
-float_segsum.launches = 0

@@ -160,7 +160,6 @@ def knn_buckets(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
     _lib.launch("fstt_knn_buckets", ys.device, ys.data_ptr(), xs.data_ptr(),
                 K, S, nh, nw, BUCKET_RANGE, tile, sorted_ids.data_ptr(),
                 cell_start.data_ptr())
-    knn_buckets.launches += 1
     return sorted_ids, cell_start
 
 
@@ -196,9 +195,4 @@ def knn(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int, m: int,
                     sorted_ids.data_ptr(), cell_start.data_ptr(), K, S, nh,
                     nw, m, whole.data_ptr() if heap else None, HEAP_WARPS,
                     buf.data_ptr(), buf[K * m:].data_ptr())
-        knn.launches += 1
     return buf if packed else (buf[:K * m].view(K, m), buf[K * m:])
-
-
-knn.launches = 0
-knn_buckets.launches = 0

@@ -47,8 +47,4 @@ def lsc_color_feats(planes, lcos, lsin, ccos, csin):
     out = torch.empty((6, H, W), dtype=torch.float32, device=dev)
     _lib.launch("fstt_lsc_feat", dev, planes.data_ptr(), tables.data_ptr(),
                 out.data_ptr(), H * W)
-    lsc_color_feats.launches += 1
     return out
-
-
-lsc_color_feats.launches = 0

@@ -102,7 +102,8 @@ def _launch_update(name, assignment, planes, mask, K, stride, rem):
     if mask is not None:
         _lib.check(mask, "mask", torch.bool, dev)
         args.append(mask.data_ptr())
-    _lib.launch(name, dev, *args, out.data_ptr(), H, W, K, B, stride, rem)
+    _lib.launch(name, dev, *args, out.data_ptr(), H, W, K, B, stride, rem,
+                launches=int(rem < H))  # no launch for a pass with no rows
     return out
 
 
@@ -116,12 +117,7 @@ def slic_update(assignment, planes, K: int, stride: int, rem: int):
         raise ValueError("unsupported device %s" % dev)
     out = _launch_update("fstt_slic_update", assignment, planes, None, K,
                          stride, rem)
-    # the launcher skips a pass with no rows (rem >= H)
-    slic_update.launches += rem < assignment.shape[-2]
     return out
-
-
-slic_update.launches = 0
 
 
 def slic_update_masked(assignment, planes, mask, K: int, stride: int,
@@ -136,12 +132,7 @@ def slic_update_masked(assignment, planes, mask, K: int, stride: int,
         raise ValueError("unsupported device %s" % dev)
     out = _launch_update("fstt_slic_update_masked", assignment, planes, mask,
                          K, stride, rem)
-    # the launcher skips a pass with no rows (rem >= H)
-    slic_update_masked.launches += rem < assignment.shape[-2]
     return out
-
-
-slic_update_masked.launches = 0
 
 
 def _check_segsum(ids, vals, num_segments):
@@ -175,11 +166,7 @@ def segment_sum(ids, vals, num_segments: int):
     out = torch.zeros((V, num_segments + 1), dtype=torch.int32, device=dev)
     _lib.launch("fstt_segment_sum", dev, ids.data_ptr(), vals.data_ptr(),
                 out.data_ptr(), N, V, num_segments + 1)
-    segment_sum.launches += 1
     return out
-
-
-segment_sum.launches = 0
 
 
 def _check_framed(ids, vals, num_segments_f):
@@ -221,8 +208,4 @@ def framed_segment_sum(ids, vals, num_segments_f: int):
     out = torch.zeros((B, V, num_segments_f), dtype=torch.int32, device=dev)
     _lib.launch("fstt_framed_segment_sum", dev, ids.data_ptr(),
                 vals.data_ptr(), out.data_ptr(), B, Nf, V, num_segments_f)
-    framed_segment_sum.launches += 1
     return out
-
-
-framed_segment_sum.launches = 0

@@ -23,6 +23,7 @@ from .config import (
     StaticConfig,
     check_arch,
 )
+from .utils.timing import spanned
 
 _REAL_DIST_TO_VARIANT = {
     "standard": VARIANT_REAL,
@@ -133,6 +134,7 @@ class SlicModel:
 
     # -- pipeline entry points ----------------------------------------------
 
+    @spanned("entry.seed")
     def initialize(self, image) -> None:
         """Grid-seed the clusters from an image (cfast_slic.pyx:124-147)."""
         image = np.ascontiguousarray(image)

@@ -13,11 +13,13 @@ implementation.
 from __future__ import annotations
 
 from ..model import SlicModel
+from ..utils.timing import spanned
 
 
 class BaseSlic(object):
     arch_name = "standard"
 
+    @spanned("entry.init")
     def __init__(self,
                  num_components=400,
                  slic_model=None,
@@ -61,6 +63,7 @@ class BaseSlic(object):
     def last_assignment(self):
         return self._last_assignment
 
+    @spanned("entry.iterate")
     def iterate(self, image, max_iter=10):
         if not self._slic_model.initialized:
             self._slic_model.initialize(image)

@@ -36,6 +36,7 @@ import torch
 from ..config import UNASSIGNED
 from ..kernels.cca import connected_components, lookup, resolve_orphans
 from ..kernels.segsum import framed_segment_sum, segment_sum
+from ..utils.timing import span, spanned, to_device, to_host
 
 
 def leader_ranks(L):
@@ -62,6 +63,7 @@ def segsum_values(comp, is_leader):
                                     0)])
 
 
+@spanned("cca.components")
 def cca_parts(assignment):
     """Components, areas and orphan targets: [H, W] int32 labels ->
     (comp_flat int32 [n] per-pixel component ids, areas int32 [n], orphan
@@ -155,6 +157,7 @@ def orphan_tables(areas, target, num_components, K: int,
             (target + base).reshape(-1).to(torch.int32), boundary_tie)
 
 
+@spanned("cca.select")
 def _substitutes(areas, target, num_components, K: int, min_threshold: int,
                  n_pixels=None):
     """:func:`orphan_tables` and the orphan adoption (cca.cpp:240-254) in
@@ -177,7 +180,8 @@ def enforce_connectivity_flagged(assignment, K: int, min_threshold: int):
     comp_flat, areas, target, num_components = cca_parts(assignment)
     substitute, boundary_tie = _substitutes(areas, target, num_components, K,
                                             min_threshold)
-    return lookup(comp_flat, substitute).reshape(H, W), boundary_tie
+    with span("cca.relabel"):
+        return lookup(comp_flat, substitute).reshape(H, W), boundary_tie
 
 
 def enforce_connectivity_exact(assignment, K: int, min_threshold: int):
@@ -186,7 +190,7 @@ def enforce_connectivity_exact(assignment, K: int, min_threshold: int):
     ``std::partial_sort`` ties included.  Returns (labels int32 [H, W],
     whether the escalation ran)."""
     labels, tie = enforce_connectivity_flagged(assignment, K, min_threshold)
-    if bool(tie):
+    if to_host(tie, bool):
         return selection_rerun_device(assignment, K, min_threshold), True
     return labels, False
 
@@ -222,6 +226,7 @@ def framed_components(assignment, K: int):
     return comp, is_leader.reshape(B, H * W)
 
 
+@spanned("cca.components")
 def framed_cca_parts(assignment, K: int):
     """:func:`cca_parts` for B stacked frames: int32 [B, H, W] frame-local
     labels -> (comp int32 [B, H, W], areas int32 [B, n], orphan target
@@ -255,15 +260,17 @@ def enforce_connectivity_framed_flagged(assignment, K: int,
     comp, areas, target, num_components = framed_cca_parts(assignment, K)
     substitute, boundary_tie = _substitutes(areas, target, num_components, K,
                                             min_threshold)
-    base = torch.arange(B, dtype=torch.int32, device=comp.device) * n
-    ids = (comp + base[:, None, None]).reshape(-1)
-    return (lookup(ids, substitute.reshape(-1)).reshape(B, H, W),
-            boundary_tie)
+    with span("cca.relabel"):
+        base = torch.arange(B, dtype=torch.int32, device=comp.device) * n
+        ids = (comp + base[:, None, None]).reshape(-1)
+        return (lookup(ids, substitute.reshape(-1)).reshape(B, H, W),
+                boundary_tie)
 
 
 def cca_relabel(comp_flat, substitute, shape):
     """labels = substitute[comp_flat] through the lookup kernel."""
-    return lookup(comp_flat, substitute).reshape(shape)
+    with span("cca.relabel"):
+        return lookup(comp_flat, substitute).reshape(shape)
 
 
 def selection_rerun_device(raw, K: int, thres: int):
@@ -272,10 +279,10 @@ def selection_rerun_device(raw, K: int, thres: int):
     (:func:`substitutes_np`) on the small per-component arrays; the device
     relabels.  Returns int32 [H, W] labels on the device of ``raw``."""
     comp_flat, areas, target, ncomp_t = cca_parts(raw)
-    ncomp = int(ncomp_t)
-    sub = substitutes_np(areas[:ncomp].cpu().numpy(),
-                         target[:ncomp].cpu().numpy(), ncomp, K, thres)
-    sub_t = torch.from_numpy(sub).to(raw.device)
+    ncomp = to_host(ncomp_t, int)
+    sub = substitutes_np(to_host(areas[:ncomp]).numpy(),
+                         to_host(target[:ncomp]).numpy(), ncomp, K, thres)
+    sub_t = to_device(torch.from_numpy(sub), raw.device)
     return cca_relabel(comp_flat, sub_t, tuple(raw.shape))
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timing import to_device
+
 SRGB_SHIFT = 13
 SRGB_MAX = 1 << SRGB_SHIFT        # 8192
 LAB_SHIFT = 16
@@ -119,7 +121,7 @@ def rgb_to_lab_quantized_np(image: np.ndarray) -> np.ndarray:
 
 def lab_tables(device):
     """(srgb int32 [256], cb int32 [3, 3], lab int32 [8193]) on ``device``."""
-    return tuple(torch.from_numpy(t.copy()).to(device)
+    return tuple(to_device(torch.from_numpy(t.copy()), device)
                  for t in (_SRGB_TBL_NP, _CB_NP, _LAB_TBL_NP))
 
 

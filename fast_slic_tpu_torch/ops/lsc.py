@@ -28,6 +28,7 @@ import torch
 from ..config import UNASSIGNED, StaticConfig
 from ..kernels.fsegsum import float_segsum
 from ..kernels.lsc_feat import lsc_color_feats
+from ..utils.timing import to_device
 
 C_COLOR = 20.0  # lsc.h:8
 N_FEAT = 10
@@ -64,7 +65,7 @@ def _raw_features(planes, tables, row0: int = 0):
     [row0, row0 + h) held in ``planes`` int32 [3, h, W]."""
     _, h, W = planes.shape
     dev = planes.device
-    t = {k: torch.from_numpy(v).to(dev) for k, v in tables.items()}
+    t = {k: to_device(torch.from_numpy(v), dev) for k, v in tables.items()}
     color6 = lsc_color_feats(planes, t["L_cos"], t["L_sin"],
                              t["color_cos"], t["color_sin"])
     return torch.cat([

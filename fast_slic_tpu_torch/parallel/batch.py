@@ -39,6 +39,7 @@ from ..config import UNASSIGNED, VARIANT_LSC, StaticConfig, check_arch
 from ..model import resolve_device
 from ..ops.cca import selection_rerun_device
 from ..pipeline import derive_scalars, iterate_graph
+from ..utils.timing import span, spanned, to_device, to_host
 from .stack import iterate_graph_stacked
 
 __all__ = ["BatchedSlic", "PendingBatch"]
@@ -65,6 +66,7 @@ class BatchedSlic:
     for API parity.
     """
 
+    @spanned("entry.init")
     def __init__(self, num_components=400, compactness=10.0,
                  min_size_factor=0.25, subsample_stride=3,
                  convert_to_lab=True, manhattan_spatial_dist=True,
@@ -115,6 +117,7 @@ class BatchedSlic:
             preemptive=bool(self.preemptive), **kw)
 
     # -- state ----------------------------------------------------------
+    @spanned("entry.seed")
     def initialize(self, images) -> None:
         """Seed the per-frame states from a batch (host grid seeding)."""
         states = [cluster_lib.initialize_clusters(img, self.num_components)
@@ -145,6 +148,7 @@ class BatchedSlic:
                        for g, dev in enumerate(self._devices)]
 
     # -- hot path --------------------------------------------------------
+    @spanned("entry.batch")
     def iterate(self, images, max_iter=10):
         """images: uint8 [B, H, W, 3], numpy or a tensor."""
         return self.iterate_async(images, max_iter).resolve()
@@ -162,7 +166,7 @@ class BatchedSlic:
         B, H, W, _ = images.shape
         Bg = _group_size(B, len(self._devices))
         if self._state is None:
-            self.initialize(images.cpu().numpy())
+            self.initialize(to_host(images).numpy())
         cfg = self._cfg(H, W)
         scalars = derive_scalars(cfg, self.compactness, self.min_size_factor,
                                  self.preemptive_thres)
@@ -170,9 +174,10 @@ class BatchedSlic:
         stacked = self._use_stack(B)
         parts = []
         for g, dev in enumerate(self._devices):
-            parts.append(_run_group(
-                stacked, images[g * Bg:(g + 1) * Bg].to(dev),
-                self._state[g], cfg, scalars, max_iter, stride))
+            with span("batch.upload"):
+                frames = to_device(images[g * Bg:(g + 1) * Bg], dev)
+            parts.append(_run_group(stacked, frames, self._state[g], cfg,
+                                    scalars, max_iter, stride))
         labels, st, raw, ovf, tie = zip(*parts)
         if self.mesh is None:
             labels, ovf, tie = labels[0], ovf[0], tie[0]
@@ -223,6 +228,7 @@ class PendingBatch:
         self._p = (parent, images, prev_state, max_iter, cfg, scalars,
                    labels, both, raw)
 
+    @spanned("batch.resolve")
     def resolve(self):
         """Fetch the batch's flags (one transfer) and return the labels
         (int32 [B, H, W] on the device, -1 = unassigned), after the
@@ -231,7 +237,7 @@ class PendingBatch:
          raw) = self._p
         if not parent.check_exactness:
             return labels
-        both = both_d.cpu().numpy()
+        both = to_host(both_d).numpy()
         if both[0] and parent._capacity_boost < 2:
             # candidate slots exceeded: re-run the batch from its state
             # before the batch with more slots (the runner's escalation)
@@ -240,8 +246,9 @@ class PendingBatch:
             return parent.iterate(images, max_iter)
         Bg = raw[0].shape[0]
         for f in np.nonzero(both[1:])[0].tolist():
-            r = raw[f // Bg][f % Bg]
-            fixed = selection_rerun_device(r, cfg.K, int(scalars.thres))
-            fixed = torch.where(fixed == UNASSIGNED, -1, fixed)
-            labels[f] = fixed.to(labels.device)
+            with span("runner.tie_escalation"):
+                r = raw[f // Bg][f % Bg]
+                fixed = selection_rerun_device(r, cfg.K, int(scalars.thres))
+                fixed = torch.where(fixed == UNASSIGNED, -1, fixed)
+                labels[f] = fixed.to(labels.device)
         return labels

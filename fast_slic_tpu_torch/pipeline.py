@@ -41,7 +41,7 @@ from .kernels.lab import rgb_to_lab_planar
 from .kernels.segsum import slic_update, slic_update_masked
 from .ops import lsc as lsc_ops
 from .ops.cca import enforce_connectivity_flagged
-from .utils.timing import Timer
+from .utils.timing import Timer, span
 
 _PREEMPTIVE_COOLDOWN = 2  # preemptive.h:32
 
@@ -365,16 +365,18 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
     for i in range(max_iter):
         rem = i % stride
         with scope("assign"):
-            st = _clamp_centers(st, cfg)
-            cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
-            overflow = overflow | cov
+            with span("loop.candidates"):
+                st = _clamp_centers(st, cfg)
+                cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
+                overflow = overflow | cov
             if recorder is not None:
                 min_dists = torch.full_like(assignment, dist_fill,
                                             dtype=dist_dtype)
-            assign_pass(planes, st, cand, assignment, cfg, scalars, stride,
-                        rem, min_dists, feats, cent)
+            with span("loop.assign"):
+                assign_pass(planes, st, cand, assignment, cfg, scalars,
+                            stride, rem, min_dists, feats, cent)
         old_y, old_x = st.y, st.x  # set_old_clusters (context.cpp:303)
-        with scope("update"):
+        with scope("update"), span("loop.update"):
             # per-cluster (count, i, j, L, a, b) over the rows just assigned
             if cfg.preemptive:
                 acc = slic_update_masked(assignment, planes, pixel_mask,
@@ -384,13 +386,14 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
             acc = acc.reshape((6,) + tuple(st.y.shape))
             st = update_apply_means_rows(acc[0], acc[1:], st, cfg)
         if cfg.variant == VARIANT_LSC:
-            with scope("after_update"):
+            with scope("after_update"), span("loop.after_update"):
                 cent = lsc_ops.after_update(feats, weights, st, cent, cfg,
                                             rem, stride, assignment,
                                             pixel_mask)
         if cfg.preemptive:
-            st, pixel_mask = _preemptive_step(st, old_y, old_x, cfg,
-                                              scalars.l1_thres)
+            with span("loop.preemptive"):
+                st, pixel_mask = _preemptive_step(st, old_y, old_x, cfg,
+                                                  scalars.l1_thres)
         if recorder is not None:
             recorder.snap(i, assignment, min_dists, st)
     return st, assignment, cent, overflow
@@ -401,15 +404,17 @@ def stage_full_assign(planes, st: Clusters, lsc_state, cent, assignment,
     """Preemptive finalize and full_assign at stride 1
     (context.cpp:176-181).  Updates ``assignment`` in place; returns
     (clusters, assignment, min_dists, candidate overflow flag)."""
-    st = st.replace(is_active=torch.ones_like(st.is_active))
-    st = _clamp_centers(st, cfg)
-    cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
+    with span("loop.candidates"):
+        st = st.replace(is_active=torch.ones_like(st.is_active))
+        st = _clamp_centers(st, cfg)
+        cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
     dtype = (torch.int32 if cfg.variant == VARIANT_STANDARD
              else torch.float32)
     min_dists = torch.empty(assignment.shape, dtype=dtype,
                             device=assignment.device)
-    assign_pass(planes, st, cand, assignment, cfg, scalars, 1, 0, min_dists,
-                lsc_state[0], cent)
+    with span("loop.assign"):
+        assign_pass(planes, st, cand, assignment, cfg, scalars, 1, 0,
+                    min_dists, lsc_state[0], cent)
     return st, assignment, min_dists, cov
 
 

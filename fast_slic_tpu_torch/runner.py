@@ -21,7 +21,7 @@ from .config import (CAND_RERUNS, UNASSIGNED, RuntimeParams, StaticConfig,
                      more_cand_slots)
 from .ops.cca import selection_rerun_device
 from .utils.recorder import Recorder, Snapshots
-from .utils.timing import Timer
+from .utils.timing import Timer, span, to_device, to_host
 
 
 class RunResult(NamedTuple):
@@ -84,24 +84,27 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
                 out = pipeline.iterate_graph(image_t, st, cfg, scalars,
                                              params.max_iter,
                                              params.subsample_stride, timer)
-            if escalation == CAND_RERUNS or not bool(out.cand_overflow):
+            if escalation == CAND_RERUNS or not _overflowed(out):
                 break
             cfg = dataclasses.replace(
                 cfg, cand_slots=more_cand_slots(cfg.cand_slots))
         with timer.scope("write_back"):
-            tie = bool(out.cca_tie)
+            tie = to_host(out.cca_tie, bool)
             if tie:
                 # component areas tie at the top-K boundary: the survivors
                 # are those of the reference's std::partial_sort, which has
                 # no data-parallel form; the host selects, the device
                 # relabels (ops.cca.selection_rerun_device)
-                fixed = selection_rerun_device(out.raw_assignment, cfg.K,
-                                               int(scalars.thres))
-                lab = torch.where(fixed == UNASSIGNED, -1, fixed)
+                with span("runner.tie_escalation"):
+                    fixed = selection_rerun_device(out.raw_assignment, cfg.K,
+                                                   int(scalars.thres))
+                    lab = torch.where(fixed == UNASSIGNED, -1, fixed)
             else:
                 lab = out.labels
-            labels = lab.cpu().numpy().astype(np.int16)
-            final = out.clusters.as_numpy()
+            with span("runner.labels_to_host"):
+                labels = to_host(lab).numpy().astype(np.int16)
+            with span("runner.state_to_host"):
+                final = out.clusters.as_numpy()
         snapshots = None
         if recorder is not None:
             with timer.scope("recorder"):
@@ -110,6 +113,12 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
                      snapshots)
 
 
+def _overflowed(out) -> bool:
+    """The host's read of the candidate-overflow flag."""
+    with span("runner.overflow_check"):
+        return to_host(out.cand_overflow, bool)
+
+
 def _upload(image, clusters: Clusters, device):
-    return (torch.from_numpy(np.ascontiguousarray(image)).to(device),
+    return (to_device(torch.from_numpy(np.ascontiguousarray(image)), device),
             clusters.to_torch(device))

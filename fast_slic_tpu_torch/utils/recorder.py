@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..cluster import Clusters
+from .timing import to_host
 
 
 def _fmt(v) -> str:
@@ -102,6 +103,6 @@ class Recorder:
         host = Clusters(*fields).as_numpy()
         clusters = [Clusters(*(f[t] for f in host.fields()))
                     for t in range(len(its))]
-        return Snapshots(int(H), int(W), its, assignments.cpu().numpy(),
-                         torch.stack([s[2] for s in self._snaps]
-                                     ).cpu().numpy(), clusters)
+        return Snapshots(int(H), int(W), its, to_host(assignments).numpy(),
+                         to_host(torch.stack([s[2] for s in self._snaps])
+                                 ).numpy(), clusters)

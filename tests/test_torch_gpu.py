@@ -63,7 +63,7 @@ from fast_slic_tpu_torch import (LSCAvx2, SlicAvx2, SlicRealDist,
 from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.kernels import (assign, assign_float, cca, fsegsum,
-                                         lab, lsc_feat, segsum)
+                                         lab, launch_counts, lsc_feat, segsum)
 from fast_slic_tpu_torch.ops.cca import (cca_parts, leader_ranks,
                                          orphan_tables, segsum_values)
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
@@ -951,9 +951,9 @@ def test_knn_buckets_kernel_matches_plain(cuda, rng, monkeypatch, case):
         monkeypatch.setattr(knn, "BUCKET_RANGE", 37)
         monkeypatch.setattr(knn, "BUCKET_TILE", 64)
     want = knn.knn_buckets_plain(ys, xs, H, W)
-    before = knn.knn_buckets.launches
+    before = launch_counts()["knn_buckets"]
     got = knn.knn_buckets(ys.to(cuda), xs.to(cuda), H, W)
-    assert knn.knn_buckets.launches == before + 1
+    assert launch_counts()["knn_buckets"] == before + 1
     for g, w, p in zip(got, want, knn.knn_buckets_plain(ys.to(cuda),
                                                         xs.to(cuda), H, W)):
         _eq(g, w)
@@ -1006,7 +1006,7 @@ def test_knn_call_makes_two_launches(cuda):
     ys, xs = _fixture_centres(cuda)
     knn.knn(ys, xs, 720, 1280, 4)
     torch.cuda.synchronize()
-    before = (knn.knn.launches, knn.knn_buckets.launches)
+    before = (launch_counts()["knn"], launch_counts()["knn_buckets"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         knn.knn(ys, xs, 720, 1280, 4)
@@ -1016,7 +1016,7 @@ def test_knn_call_makes_two_launches(cuda):
     assert sum(e.count for e in device) == 2, [e.key for e in device]
     assert any("knn_buckets_kernel" in e.key for e in device)
     assert any("knn_kernel" in e.key for e in device)
-    assert (knn.knn.launches, knn.knn_buckets.launches) == (
+    assert (launch_counts()["knn"], launch_counts()["knn_buckets"]) == (
         before[0] + 1, before[1] + 1)
 
 
@@ -1066,7 +1066,7 @@ def test_graph_ops_default_to_the_card(cuda, rng):
     st.y[:] = rng.uniform(0, lab.shape[0], K)
     st.x[:] = rng.uniform(0, lab.shape[1], K)
     st.num_members[:] = rng.integers(0, 50, K)
-    before = knn.knn.launches
+    before = launch_counts()["knn"]
     for got, want in ((graph.knn(st, 4, lab.shape),
                        graph.knn(st, 4, lab.shape, "cpu")),
                       (graph.knn(st.to_torch(cuda), 4, lab.shape),
@@ -1075,7 +1075,7 @@ def test_graph_ops_default_to_the_card(cuda, rng):
                        graph.adjacency_matrix(lab, K, "cpu"))):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    assert knn.knn.launches == before + 2
+    assert launch_counts()["knn"] == before + 2
     mask = rng.integers(0, 256, size=lab.shape, dtype=np.uint8)
     np.testing.assert_array_equal(
         graph.mask_density(torch.from_numpy(mask).to(cuda),
@@ -1329,9 +1329,9 @@ def test_propagate_min_kernel_matches_plain(cuda, rng, case):
     lab_t = torch.from_numpy(labels).to(cuda)
     m0_t = torch.from_numpy(m0.reshape(labels.shape)).to(cuda)
     roots = cca.connected_components(lab_t)
-    before = cca.propagate_min.launches
+    before = launch_counts()["propagate_min"]
     got = cca.propagate_min(m0_t, roots)
-    assert cca.propagate_min.launches == before + 1
+    assert launch_counts()["propagate_min"] == before + 1
     _eq(got, cca.propagate_min_plain(
         m0_t, cca.connected_components_plain(lab_t)))
 
@@ -1342,9 +1342,9 @@ def test_region_table_kernel_matches_plain(cuda, rng, case):
     lab_t = torch.from_numpy(labels).to(cuda)
     m0_t = torch.from_numpy(m0.reshape(labels.shape)).to(cuda)
     roots = cca.connected_components(lab_t)
-    before = cca.region_table.launches
+    before = launch_counts()["region_table"]
     got = cca.region_table(m0_t, roots)
-    assert cca.region_table.launches == before + 1
+    assert launch_counts()["region_table"] == before + 1
     _eq(got, cca.region_table_plain(
         m0_t, cca.connected_components_plain(lab_t)))
 
@@ -1374,10 +1374,10 @@ def test_seam_min_kernel_matches_plain(cuda, rng, case):
         for fn in (cca.seam_min, cca.seam_min_plain):
             t = table.clone()
             changed = torch.zeros((), dtype=torch.int32, device=cuda)
-            before = cca.seam_min.launches
+            before = launch_counts()["seam_min"]
             fn(t, roots[-1], slab[-1], nb, val_nb, changed, stamp)
             if fn is cca.seam_min:
-                assert cca.seam_min.launches == before + 1
+                assert launch_counts()["seam_min"] == before + 1
             outs.append((t, changed))
         (t, c), (t_ref, c_ref) = outs
         _eq(t, t_ref)
@@ -1410,3 +1410,83 @@ def test_mesh_on_one_card_matches_single_device(cuda, rng):
                                             devices=[cuda] * 4))
         plain = BatchedSlic(num_components=150, batch_mode=mode, device=cuda)
         _eq(meshed.iterate(frames), plain.iterate(frames))
+
+
+def _sync_warnings(fn):
+    """fn()'s result and the synchronising operations that torch's sync
+    debug mode reports while it runs."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
+def _warm_720p(cuda):
+    """A SlicAvx2(1600) at 720p after its first (seeding) call, the
+    frame, and the next call's frames (panned 8 px a call)."""
+    slic = SlicAvx2(num_components=1600, device=cuda)
+    frame = _frame_720p()
+    slic.iterate(frame)
+    return slic, [np.roll(frame, 8 * t, 1) for t in range(1, 6)]
+
+
+def test_host_syncs_equal_the_sync_debug_warnings(cuda):
+    """One 720p call: every wait of the host on the device that torch's
+    sync debug mode sees is one the counters count, and no other."""
+    import json
+    slic, frames = _warm_720p(cuda)
+    _, warned = _sync_warnings(lambda: slic.iterate(frames[0]))
+    counters = json.loads(slic.slic_model.last_timing_report)["counters"]
+    assert warned == counters["host_syncs"] > 0
+
+
+def test_transfer_counters_are_the_bytes_moved(cuda):
+    """A 720p call without a tie: up the image, the eight state fields
+    and each attempt's LAB tables; down the overflow flag of each attempt
+    that reads it, the tie flag, the int32 labels and the state; one host
+    sync for each."""
+    import json
+    from fast_slic_tpu_torch.config import CAND_RERUNS
+    from fast_slic_tpu_torch.ops.cielab import lab_tables
+    slic, frames = _warm_720p(cuda)
+    for f in frames:
+        slic.iterate(f)
+        if not slic.slic_model.last_cca_tie:
+            break
+    assert not slic.slic_model.last_cca_tie
+    rep = json.loads(slic.slic_model.last_timing_report)
+    attempts = sum(c["name"] == "iteration_loop" for c in rep["children"])
+    flags = min(attempts, CAND_RERUNS) + 1
+    tables = [t.numel() * t.element_size() for t in lab_tables("cpu")]
+    state = 1600 * (5 * 4 + 8 + 4 + 4)    # y x r g b, int64 members, flags
+    assert rep["counters"] == {
+        "host_syncs": 1 + 8 + len(tables) * attempts + flags + 1 + 8,
+        "h2d_bytes": f.nbytes + state + sum(tables) * attempts,
+        "d2h_bytes": flags + 720 * 1280 * 4 + state}
+
+
+def test_spans_stay_on_the_host_timeline(cuda):
+    """Under a CUDA profiler the program's spans are host operator events:
+    none is a user annotation, none is device-typed, and every call has
+    its one entry span."""
+    from torch.profiler import ProfilerActivity, profile
+    slic, frames = _warm_720p(cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in frames[:3]:
+            slic.iterate(f)
+        torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [e for e in events if e.name.startswith("fstt.")]
+    assert sum(e.name == "fstt.entry.iterate" for e in spans) == 3
+    assert not any(e.is_user_annotation for e in spans)
+    device = [e for e in events if e.device_type == on_device]
+    assert device and not any(e.name.startswith("fstt.") for e in device)

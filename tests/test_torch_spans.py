@@ -1,0 +1,168 @@
+"""PyTorch port: the spans and counters of ``utils/timing.py``.
+
+Under ``torch.profiler`` (CPU activity) a public call records its
+``fstt.`` spans: one entry span a call, one ``iterate`` section, a
+candidate build a loop pass and one for the full assign, each loop span
+inside the ``iteration_loop`` or ``full_assign`` section, none a user
+annotation; the same for ``BatchedSlic`` in stack and map mode, with LSC.
+The timing report's top-level section carries the call's counters (0 on
+the CPU, where nothing crosses to a device), and the launch counts read
+the same counter store.
+"""
+
+import collections
+import json
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import fast_slic_tpu_torch as ft
+from conftest import make_image
+from fast_slic_tpu_torch import kernels
+from fast_slic_tpu_torch.kernels import _lib
+from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+from fast_slic_tpu_torch.utils import timing
+
+K = 12
+MAX_ITER = 3
+LOOP_SECTIONS = ("fstt.iteration_loop", "fstt.full_assign")
+
+
+def spans_of(fn):
+    """The ``fstt.`` events recorded while ``fn()`` runs."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e for e in prof.events() if e.name.startswith("fstt.")]
+
+
+def counts(spans):
+    return collections.Counter(e.name for e in spans)
+
+
+def assert_loop_spans_nested(spans):
+    """Every ``fstt.loop.*`` lies inside an iteration_loop or full_assign
+    interval."""
+    outer = [(e.time_range.start, e.time_range.end) for e in spans
+             if e.name in LOOP_SECTIONS]
+    loop = [e for e in spans if e.name.startswith("fstt.loop.")]
+    assert loop
+    for e in loop:
+        assert any(s <= e.time_range.start and e.time_range.end <= t
+                   for s, t in outer), e.name
+
+
+@pytest.fixture
+def image():
+    return make_image(np.random.default_rng(7), 32, 40)
+
+
+@pytest.mark.parametrize("cls", ["Slic", "LSC"])
+def test_slic_iterate_records_its_spans(image, cls):
+    slic = getattr(ft, cls)(num_components=K, device="cpu")
+    spans = spans_of(lambda: slic.iterate(image, max_iter=MAX_ITER))
+    n = counts(spans)
+    attempts = n["fstt.iteration_loop"]
+    assert attempts >= 1
+    assert n["fstt.entry.iterate"] == 1 and n["fstt.iterate"] == 1
+    assert n["fstt.entry.seed"] == 1
+    assert n["fstt.loop.candidates"] == (MAX_ITER + 1) * attempts
+    assert n["fstt.loop.assign"] == (MAX_ITER + 1) * attempts
+    assert n["fstt.loop.update"] == MAX_ITER * attempts
+    assert n["fstt.loop.after_update"] == (
+        MAX_ITER * attempts if cls == "LSC" else 0)
+    for name in ("write_to_buffer", "cielab_conversion", "full_assign",
+                 "enforce_connectivity", "write_back", "cca.components",
+                 "cca.select", "cca.relabel", "runner.overflow_check",
+                 "runner.labels_to_host", "runner.state_to_host"):
+        assert n["fstt." + name] >= 1, name
+    assert_loop_spans_nested(spans)
+    assert not any(e.is_user_annotation for e in spans)
+
+
+def test_constructor_and_preemptive_spans(image):
+    spans = spans_of(lambda: ft.Slic(num_components=K, preemptive=True,
+                                     device="cpu").iterate(image, 2))
+    n = counts(spans)
+    assert n["fstt.entry.init"] == 1
+    assert n["fstt.loop.preemptive"] == 2 * n["fstt.iteration_loop"]
+    assert_loop_spans_nested(spans)
+
+
+@pytest.mark.parametrize("mode,variant", [("stack", "standard"),
+                                          ("map", "standard"),
+                                          ("map", "lsc"),
+                                          ("stack", "lsc")])
+def test_batch_iterate_records_its_spans(image, mode, variant):
+    frames = np.stack([image, image[::-1].copy()])
+    batch = BatchedSlic(num_components=K, batch_mode=mode, variant=variant,
+                        device="cpu")
+    spans = spans_of(lambda: batch.iterate(frames, max_iter=MAX_ITER))
+    n = counts(spans)
+    attempts = n["fstt.entry.batch"]
+    assert attempts >= 1 and n["fstt.batch.resolve"] == attempts
+    assert n["fstt.batch.upload"] == attempts
+    assert n["fstt.entry.seed"] == 1
+    # LSC is not stacked: it runs the frames in turn, as map mode does
+    per_call = 1 if (mode, variant) == ("stack", "standard") else 2
+    assert n["fstt.iteration_loop"] == per_call * attempts
+    assert n["fstt.loop.candidates"] == (MAX_ITER + 1) * per_call * attempts
+    assert n["fstt.cca.components"] >= per_call * attempts
+    assert_loop_spans_nested(spans)
+    assert not any(e.is_user_annotation for e in spans)
+
+
+def test_report_carries_the_call_counters(image):
+    slic = ft.Slic(num_components=K, device="cpu")
+    slic.iterate(image, max_iter=MAX_ITER)
+    rep = json.loads(slic.slic_model.last_timing_report)
+    assert rep["counters"] == {"host_syncs": 0, "h2d_bytes": 0,
+                               "d2h_bytes": 0}
+
+
+def test_timer_counts_only_inside_its_top_section():
+    timer = timing.Timer(None)
+    timing.COUNTS["host_syncs"] += 5
+    with timer.scope("iterate"):
+        with timer.scope("inner"):
+            timing.COUNTS["host_syncs"] += 2
+            timing.COUNTS["h2d_bytes"] += 100
+        timing.COUNTS["d2h_bytes"] += 7
+        timing.COUNTS["launch.fstt_assign"] += 1
+    timing.COUNTS["host_syncs"] += 3
+    rep = json.loads(timer.report())
+    assert rep["counters"] == {"host_syncs": 2, "h2d_bytes": 100,
+                               "d2h_bytes": 7}
+    assert [c["name"] for c in rep["children"]] == ["inner"]
+
+
+def test_transfers_on_one_device_count_nothing():
+    before = dict(timing.COUNTS)
+    t = timing.to_device(torch.arange(6), "cpu", torch.int64)
+    assert timing.to_host(t[2], int) == 2
+    assert timing.to_host(torch.ones((), dtype=torch.bool), bool) is True
+    assert torch.equal(timing.to_host(t), torch.arange(6))
+    assert dict(timing.COUNTS) == before
+
+
+def test_launch_counts_read_the_counter_store():
+    assert {k.entry for k in kernels.KERNELS} <= set(_lib._SIGNATURES)
+    kernels.reset_launches()
+    assert set(kernels.launch_counts().values()) == {0}
+    timing.COUNTS["launch.fstt_assign"] += 3
+    timing.COUNTS["launch.fstt_cc"] += 1
+    counted = kernels.launch_counts()
+    assert counted["assign"] == 3 and counted["connected_components"] == 1
+    kernels.reset_launches()
+    assert kernels.launch_counts()["assign"] == 0
+
+
+def test_spanned_keeps_the_function():
+    @timing.spanned("test.fn")
+    def fn(a, b=2):
+        """doc"""
+        return a + b
+    assert fn(1, b=3) == 4 and fn.__doc__ == "doc" and fn.__name__ == "fn"
+    spans = spans_of(lambda: fn(1))
+    assert counts(spans) == {"fstt.test.fn": 1}
