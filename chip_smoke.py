@@ -169,20 +169,20 @@ GOLDEN_CASES = {
 
 
 # the kernels each path must launch
-STANDARD_PATH = ("lab", "assign", "slic_update", "segment_sum",
+STANDARD_PATH = ("lab", "candidates", "assign", "slic_update", "segment_sum",
                  "connected_components", "lookup", "resolve_orphans")
-FLOAT_PATH = ("lab", "lsc_feat", "assign_float", "slic_update", "fsegsum",
-              "segment_sum", "connected_components", "lookup",
+FLOAT_PATH = ("lab", "lsc_feat", "candidates", "assign_float", "slic_update",
+              "fsegsum", "segment_sum", "connected_components", "lookup",
               "resolve_orphans")
-PREEMPTIVE_PATH = ("lab", "lsc_feat", "assign", "assign_float",
+PREEMPTIVE_PATH = ("lab", "lsc_feat", "candidates", "assign", "assign_float",
                    "slic_update_masked", "fsegsum", "segment_sum",
                    "connected_components", "lookup", "resolve_orphans")
-BATCH_PATH = ("lab", "assign", "assign_float", "slic_update",
+BATCH_PATH = ("lab", "candidates", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
               "connected_components", "lookup", "resolve_orphans")
 # the mesh path: four shards of one card at 4K (the standard variant), and
 # at 1080p each variant and the preemptive grid
-MESH_PATH = ("lab", "assign", "slic_update", "seam_min",
+MESH_PATH = ("lab", "candidates", "assign", "slic_update", "seam_min",
              "connected_components", "segment_sum", "lookup",
              "resolve_orphans")
 MESH_VARIANT_PATH = ("assign_float", "lsc_feat", "fsegsum",
@@ -191,7 +191,7 @@ MESH_VARIANT_PATH = ("assign_float", "lsc_feat", "fsegsum",
 CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
 # the api phase: debug and profiled frames of SlicAvx2, LSCAvx2 and the
 # preemptive grid, and the standalone enforce_connectivity
-API_PATH = ("lab", "assign", "assign_float", "slic_update",
+API_PATH = ("lab", "candidates", "assign", "assign_float", "slic_update",
             "slic_update_masked", "segment_sum", "connected_components",
             "lookup", "resolve_orphans", "lsc_feat", "fsegsum")
 # device kernels of the redesigned calls and the once-a-frame kernels,
@@ -201,7 +201,8 @@ PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
                   "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
                   "segment_sum_kernel", "knn_kernel", "knn_buckets_kernel",
-                  "seam_min_kernel", "rt_init", "rt_scatter")
+                  "seam_min_kernel", "rt_init", "rt_scatter",
+                  "candidates_kernel")
 # the path whose run gives each kernel's launch count in the JSON line
 COUNTED_ON = dict(
     [(k, "standard") for k in STANDARD_PATH]
@@ -438,6 +439,72 @@ def log_times(what, kernel_fn, plain_fn, moved, ops):
         % (what, ms, plain_ms, b_ms, b_by))
 
 
+def candidates_check(st, cfg, res: Results, what: str, timed=None):
+    """The candidate kernel against its plain version (torch ops on the
+    card) on the state ``st`` (one frame's fields [K] or B frames' [B, K]):
+    the lists and the flag equal, one launch with a running flag.  With
+    ``timed``, both timed and the host µs of a build logged: "row" for the
+    JSON line's row (the library call: the plain version's sort alone),
+    "log" for the log alone.  Returns the kernel's lists."""
+    import torch
+    from fast_slic_tpu_torch import pipeline
+    from fast_slic_tpu_torch.kernels import candidates, launch_counts
+    y, x, act = (t if t.ndim == 2 else t[None]
+                 for t in (st.y, st.x, st.is_active))
+    B, K = y.shape
+    GH, GW = pipeline.cell_grid_shape(cfg)
+    C = cfg.cand_slots
+    args = (y, x, act, cfg.S, GH, GW, C)
+    flag = torch.zeros((), dtype=torch.bool, device=y.device)
+    before = launch_counts()["candidates"]
+    cand, ovf = candidates.candidates(*args, overflow=flag)
+    require(ovf is flag and launch_counts()["candidates"] == before + 1,
+            "candidates: not one launch into the running flag")
+    ref, ref_ovf = candidates.plain(*args)
+    res.check("candidates", max(max_abs_err(cand, ref),
+                                max_abs_err(ovf, ref_ovf)))
+    log("candidates %s: B=%d GH=%d GW=%d C=%d, overflow %s, %d filled slots"
+        % (what, B, GH, GW, C, bool(ovf), int((cand >= 0).sum())))
+    if timed:
+        span = 4 * K
+        comp = torch.randint(0, GH * GW * span, (B, 9 * K),
+                             device=y.device)
+        moved = nbytes(y, x, act, cand)
+        fns = (lambda: candidates.candidates(*args, overflow=flag),
+               lambda: candidates.plain(*args))
+        if timed == "row":
+            res.time("candidates", *fns, moved, 9 * B * K,
+                     library_fn=lambda: torch.sort(comp, dim=1))
+        else:
+            log_times("candidates %s" % what, *fns, moved, 9 * B * K)
+        log("host: candidates %s %.2f us a build, plain %.2f us (host clock "
+            "over 200 builds)" % (what, host_us(fns[0], 200),
+                                  host_us(fns[1], 200)))
+    return cand if st.y.ndim == 2 else cand[0]
+
+
+def candidates_lsc_1080p(dev, res: Results):
+    """The candidate kernel against its plain version at 1080p LSC
+    (K=1600; setup and three loop iterations of a 1080p frame), with 16 and
+    4 slots."""
+    import dataclasses
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    frame = make_frames(1, H1080, W1080)[0]
+    cfg = StaticConfig(H=H1080, W=W1080, K=K720, variant="lsc")
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    st = cl.initialize_clusters(frame, K720).to_torch(dev)
+    planes, st, lsc = pipeline.stage_setup(torch.from_numpy(frame).to(dev),
+                                           st, cfg, scal)
+    st, _, _, _ = pipeline.stage_loop(planes, st, lsc, cfg, scal, 3, 3)
+    st = pipeline._clamp_centers(st, cfg)
+    for slots in (16, 4):
+        candidates_check(st, dataclasses.replace(cfg, cand_slots=slots), res,
+                         "1080p LSC K=%d, %d slots" % (K720, slots),
+                         timed="log" if slots == 16 else None)
+
+
 def kernel_phase(dev, frame, K: int, res: Results):
     """Each kernel of the standard and float paths vs its plain version on
     ``dev`` at the frame's shapes."""
@@ -466,7 +533,7 @@ def kernel_phase(dev, frame, K: int, res: Results):
     planes, st, lsc_state = pipeline.stage_setup(image, st, cfg, scal)
     st, a0, _, _ = pipeline.stage_loop(planes, st, lsc_state, cfg, scal, 3, 3)
     st = pipeline._clamp_centers(st, cfg)
-    cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+    cand = candidates_check(st, cfg, res, "720p K=%d" % K, timed="row")
     table = pipeline.center_table(st)
     log("kernel phase: H=%d W=%d K=%d S=%d cand=%s planes=%s"
         % (H, W, K, cfg.S, tuple(cand.shape), tuple(planes.shape)))
@@ -555,6 +622,7 @@ def kernel_phase(dev, frame, K: int, res: Results):
                      1, ids_long, vals))
     log("kernel phase: raw assignment has %d components" % int(ncomp))
     propagate_min_check(dev, raw, res)
+    candidates_lsc_1080p(dev, res)
     return float_kernel_phase(dev, image, K, res)
 
 
@@ -729,7 +797,8 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
         % (B, share, int((st.is_active == 0).sum()), B * K))
     require(share < 1.0, "no inactive cell after nine preemptive iterations")
     st = pipeline._clamp_centers(st, cfg)
-    cand, _ = pipeline.build_candidates_batched(st.y, st.x, st.is_active, cfg)
+    cand = candidates_check(st, cfg, res, "720p K=%d B=%d, preemptive"
+                            % (K, B), timed="log")
     table = pipeline.center_table(st)
     planes1, mask1 = planes[:, 0].contiguous(), mask[0]
     for stride, rem in ((3, 0), (3, 1), (3, 2), (1, 0)):

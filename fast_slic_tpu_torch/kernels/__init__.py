@@ -15,6 +15,7 @@ import collections
 from ..utils.timing import COUNTS
 from . import assign as _assign
 from . import assign_float as _assign_float
+from . import candidates as _candidates
 from . import cca as _cca
 from . import fsegsum as _fsegsum
 from . import knn as _knn
@@ -90,6 +91,11 @@ KERNELS = (
     Kernel("knn_buckets", "fstt_knn_buckets", _knn.knn_buckets, "cuda",
            "fast_slic_tpu_torch/csrc/knn.cu",
            "fast_slic_tpu/native/cca_native.cpp:125 (host C++)"),
+    # not a TPU kernel: the JAX package builds the lists with XLA ops (a
+    # sort of (cell, visit key) pairs)
+    Kernel("candidates", "fstt_candidates", _candidates.candidates, "cuda",
+           "fast_slic_tpu_torch/csrc/candidates.cu",
+           "fast_slic_tpu/pipeline.py:build_candidates (XLA ops)"),
 )
 
 

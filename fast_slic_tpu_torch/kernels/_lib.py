@@ -60,6 +60,7 @@ _SIGNATURES = {
     "fstt_fsegsum": [P, P, P, P, P, LL, I, I, I, I, P],
     "fstt_knn_buckets": [P, P, I, I, I, I, I, I, P, P, P],
     "fstt_knn": [P, P, P, P, I, I, I, I, I, P, I, P, P, P],
+    "fstt_candidates": [P, P, P, P, I, I, I, I, I, I, P, P, P],
 }
 
 

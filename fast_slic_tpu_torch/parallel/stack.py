@@ -6,9 +6,10 @@ module only chains them and adds the frame-aware CCA:
 
 * one LAB launch over the [B*H, W] stack (``pipeline.stage_setup`` with
   images [B, H, W, 3]);
-* every [K] glue op of the loop is one [B, K] op: the clamp, the candidate
-  build (:func:`build_candidates_batched`, a [B, 9K] row sort), the means
+* every [K] glue op of the loop is one [B, K] op: the clamp, the means
   and the preemptive step (``pipeline._preemptive_step`` on [B, K] fields);
+* the candidate build (:func:`build_candidates_batched`) is one launch
+  over the B frames on the card, a block a frame's cell row;
 * every pixel kernel runs once over the B frames with the frame as a grid
   axis and frame-local row and cell math: assign and float assign, the
   update sums over B*K bins (``slic_update``, or ``slic_update_masked``
@@ -70,10 +71,10 @@ def iterate_graph_stacked(images, st: Clusters, cfg: StaticConfig,
         st, assignment, _, overflow = stage_loop(
             planes, st, no_lsc, cfg, scalars, max_iter, stride)
     with timer.scope("full_assign"):
-        st, assignment, _, cov = stage_full_assign(
-            planes, st, no_lsc, None, assignment, cfg, scalars)
+        st, assignment, _, overflow = stage_full_assign(
+            planes, st, no_lsc, None, assignment, cfg, scalars, overflow)
     with timer.scope("enforce_connectivity"):
         labels, tie = enforce_connectivity_framed_flagged(
             assignment, cfg.K, int(scalars.thres))
         labels = torch.where(labels == UNASSIGNED, -1, labels)
-    return StackOut(labels, st, tie, overflow | cov, assignment)
+    return StackOut(labels, st, tie, overflow, assignment)

@@ -35,6 +35,7 @@ import torch
 from .cluster import Clusters
 from .config import (UNASSIGNED, VARIANT_LSC, VARIANT_REAL_NOQ,
                      VARIANT_STANDARD, StaticConfig)
+from .kernels import candidates as candidates_kernel
 from .kernels.assign import assign
 from .kernels.assign_float import F32_MAX, assign_float
 from .kernels.lab import rgb_to_lab_planar
@@ -94,15 +95,11 @@ def visit_order_key(y, x, cfg: StaticConfig):
     """Per-cluster visit rank phase*K + k reproducing the reference's
     4-phase checkerboard assignment order (context.cpp:214-242); see
     fast_slic_tpu.pipeline.visit_order_key.  y, x: [..., K]."""
-    S, K = cfg.S, cfg.K
-    T = 2 * S + 32
-    ci = y.to(torch.int64) // T
-    cj = x.to(torch.int64) // T
-    phase = 2 * (ci % 2) + (cj % 2)
-    return phase * K + torch.arange(K, device=y.device)
+    return candidates_kernel.visit_order_key(y, x, cfg.S, cfg.K)
 
 
-def build_candidates_batched(y, x, is_active, cfg: StaticConfig, key=None):
+def build_candidates_batched(y, x, is_active, cfg: StaticConfig, key=None,
+                             overflow=None):
     """Per-cell candidate lists of B frames: for every S-cell, the active
     clusters whose centre lies in its 3x3 cell neighbourhood, in visit
     order.  y, x, is_active: [B, K] frame-local.  ``key``: the visit-order
@@ -112,68 +109,27 @@ def build_candidates_batched(y, x, is_active, cfg: StaticConfig, key=None):
     :func:`visit_order_key` of y, x.  Returns (int32
     [B, GH, GW, cand_slots] of frame-local ids, -1 = empty slot; bool
     overflow flag: some cell of some frame has more than cand_slots
-    candidates).
+    candidates).  ``overflow``: a running flag to OR the build's into, in
+    place (the loop's), returned as the flag.
 
-    Each cluster is replicated into its up to 9 cells, the (cell, visit key)
-    pairs of each frame are sorted as one composite key cell*4K + key along
-    the frame's row, and the rank inside each run of one cell gives the
-    slot; one flat scatter with per-frame slot blocks (the last slot of each
-    block takes the dropped entries) writes all frames
-    (fast_slic_tpu/parallel/stack.py:64-118).  Each frame's result equals
-    the single-frame build."""
+    One launch of the candidate kernel on the card (two without
+    ``overflow``: its fill first); the plain version's sort on the CPU
+    (:mod:`fast_slic_tpu_torch.kernels.candidates`).  Each frame's result
+    equals the single-frame build."""
     GH, GW = cell_grid_shape(cfg)
-    S, K = cfg.S, cfg.K
-    C = cfg.cand_slots
-    num_cells = GH * GW
-    B = y.shape[0]
-    dev = y.device
-
-    ci = torch.clamp(y.to(torch.int64) // S, 0, GH - 1)      # [B, K]
-    cj = torch.clamp(x.to(torch.int64) // S, 0, GW - 1)
-    if key is None:
-        key = visit_order_key(y, x, cfg)
-
-    d = torch.arange(-1, 2, device=dev)
-    di9 = d.repeat_interleave(3)[:, None]
-    dj9 = d.repeat(3)[:, None]
-    ni = ci[:, None, :] + di9                                 # [B, 9, K]
-    nj = cj[:, None, :] + dj9
-    ok = ((is_active != 0)[:, None, :] & (ni >= 0) & (ni < GH)
-          & (nj >= 0) & (nj < GW))
-    cell9 = torch.where(ok, ni * GW + nj, num_cells).reshape(B, 9 * K)
-    key9 = key[:, None, :].expand(B, 9, K).reshape(B, 9 * K)
-
-    span = 4 * K
-    comp_key, _ = torch.sort(cell9 * span + key9, dim=1)
-    sc = comp_key // span
-    okey = comp_key % span
-    M = 9 * K
-    iota = torch.arange(M, device=dev)
-    run_start = torch.ones((B, M), dtype=torch.bool, device=dev)
-    run_start[:, 1:] = sc[:, 1:] != sc[:, :-1]
-    rank = iota - torch.cummax(torch.where(run_start, iota, 0), 1).values
-
-    valid = sc < num_cells
-    kept = valid & (rank < C)
-    overflow = torch.any(valid & (rank >= C))
-    fstride = num_cells * C + 1
-    target = (torch.where(kept, sc * C + rank, num_cells * C)
-              + torch.arange(B, device=dev)[:, None] * fstride)
-    ckey = torch.full((B * fstride,), 2 ** 30, dtype=torch.int64, device=dev)
-    ckey[target.reshape(-1)] = okey.reshape(-1)
-    ckey = ckey.reshape(B, fstride)[:, :-1].reshape(B, GH, GW, C)
-    cand = torch.where(ckey < 2 ** 30, ckey % K, -1).to(torch.int32)
-    return cand, overflow
+    return candidates_kernel.candidates(y, x, is_active, cfg.S, GH, GW,
+                                        cfg.cand_slots, key, overflow)
 
 
-def build_candidates(y, x, is_active, cfg: StaticConfig, key=None):
+def build_candidates(y, x, is_active, cfg: StaticConfig, key=None,
+                     overflow=None):
     """:func:`build_candidates_batched` for one frame (fields [K]; cand
     [GH, GW, C]) or for B frames (fields [B, K])."""
     if y.ndim == 2:
-        return build_candidates_batched(y, x, is_active, cfg, key)
+        return build_candidates_batched(y, x, is_active, cfg, key, overflow)
     cand, overflow = build_candidates_batched(
         y[None], x[None], is_active[None], cfg,
-        None if key is None else key[None])
+        None if key is None else key[None], overflow)
     return cand[0], overflow
 
 
@@ -367,8 +323,8 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
         with scope("assign"):
             with span("loop.candidates"):
                 st = _clamp_centers(st, cfg)
-                cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
-                overflow = overflow | cov
+                cand, overflow = build_candidates(st.y, st.x, st.is_active,
+                                                  cfg, overflow=overflow)
             if recorder is not None:
                 min_dists = torch.full_like(assignment, dist_fill,
                                             dtype=dist_dtype)
@@ -400,14 +356,17 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
 
 
 def stage_full_assign(planes, st: Clusters, lsc_state, cent, assignment,
-                      cfg: StaticConfig, scalars: DerivedScalars):
+                      cfg: StaticConfig, scalars: DerivedScalars,
+                      overflow=None):
     """Preemptive finalize and full_assign at stride 1
     (context.cpp:176-181).  Updates ``assignment`` in place; returns
-    (clusters, assignment, min_dists, candidate overflow flag)."""
+    (clusters, assignment, min_dists, candidate overflow flag).  The flag
+    is ``overflow`` (the loop's) OR-ed in place when given."""
     with span("loop.candidates"):
         st = st.replace(is_active=torch.ones_like(st.is_active))
         st = _clamp_centers(st, cfg)
-        cand, cov = build_candidates(st.y, st.x, st.is_active, cfg)
+        cand, cov = build_candidates(st.y, st.x, st.is_active, cfg,
+                                     overflow=overflow)
     dtype = (torch.int32 if cfg.variant == VARIANT_STANDARD
              else torch.float32)
     min_dists = torch.empty(assignment.shape, dtype=dtype,
@@ -457,9 +416,8 @@ def iterate_from_setup(setup, cfg: StaticConfig, scalars: DerivedScalars,
                               stride, recorder=recorder)
     st, assignment, cent, overflow = loop
     with timer.scope("full_assign"):
-        st, assignment, min_dists, cov = stage_full_assign(
-            planes, st, lsc_state, cent, assignment, cfg, scalars)
+        st, assignment, min_dists, overflow = stage_full_assign(
+            planes, st, lsc_state, cent, assignment, cfg, scalars, overflow)
     with timer.scope("enforce_connectivity"):
         labels, cca_tie = stage_cca(assignment, cfg, scalars)
-    return IterateOut(labels, st, min_dists, assignment, cca_tie,
-                      overflow | cov)
+    return IterateOut(labels, st, min_dists, assignment, cca_tie, overflow)

@@ -29,7 +29,9 @@ the stacked batch (B=4; every device launch listed: the output's zero
 fill beside the kernel); the KNN on the clusters of the JAX package's
 first 720p frame at m=4 (every launch listed: ``knn_buckets_kernel``
 beside ``knn_kernel``, or, for a checkout from before them, the
-bucketing's torch ops) and the bucketing alone; and one steady
+bucketing's torch ops) and the bucketing alone; the candidate build
+alone at B=1 and B=4 (every launch listed; with the candidate kernel, also
+its plain version on the card); and one steady
 ``initialize(); inference(5)`` cycle of ``SimpleCRF(21, 1600)`` over four
 frames with their adjacency graphs (every launch listed).  The frames go
 through the public API and the kernel calls through the pipeline's stages, so
@@ -226,6 +228,52 @@ def profile_segment_sum(frame, batch, K, reps=20):
     return out
 
 
+def profile_candidates(frames, K, reps=20):
+    """The candidate build alone, ``reps`` builds through
+    ``pipeline.build_candidates_batched`` (every device launch listed), on
+    the mid-loop state (setup and three loop iterations) of the first frame
+    (B=1) and of the frames stacked (B=4); for a checkout with the
+    candidate kernel, also its plain version on the card (the sort build)
+    and the kernel into a running flag."""
+    import torch
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    H, W = frames[0].shape[:2]
+    cfg = StaticConfig(H=H, W=W, K=K)
+    scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+    try:
+        from fast_slic_tpu_torch.kernels import candidates
+    except ImportError:   # a checkout from before the kernel
+        candidates = None
+    out = {}
+    for B in (1, len(frames)):
+        sts = [cl.initialize_clusters(f, K) for f in frames[:B]]
+        st = cl.Clusters(*(np.stack(xs) for xs in zip(
+            *(s.fields() for s in sts)))).to_torch("cuda")
+        images = torch.from_numpy(np.stack(frames[:B])).cuda()
+        planes, st, lsc = pipeline.stage_setup(images, st, cfg, scal)
+        st, _, _, _ = pipeline.stage_loop(planes, st, lsc, cfg, scal, 3, 3)
+        st = pipeline._clamp_centers(st, cfg)
+        GH, GW = pipeline.cell_grid_shape(cfg)
+        flag = torch.zeros((), dtype=torch.bool, device="cuda")
+        calls = {"build": lambda: pipeline.build_candidates_batched(
+            st.y, st.x, st.is_active, cfg)}
+        if candidates is not None:
+            calls["plain (torch ops)"] = lambda: candidates.plain(
+                st.y, st.x, st.is_active, cfg.S, GH, GW, cfg.cand_slots)
+            calls["kernel, running flag"] = lambda: candidates.candidates(
+                st.y, st.x, st.is_active, cfg.S, GH, GW, cfg.cand_slots,
+                overflow=flag)
+        for name, call in calls.items():
+            def run(call=call):
+                for _ in range(reps):
+                    call()
+            run()
+            out["candidates %s, B=%d, %d builds" % (name, B, reps)] = (
+                profiled(run, None))
+    return out
+
+
 def profile_knn(K, reps=20):
     """The KNN alone on the clusters of the first frame of
     chip_smoke.FIXTURE at chip_smoke.CRF_KNN neighbours: ``reps`` calls,
@@ -301,6 +349,7 @@ def main() -> int:
         slic = cls(num_components=K720, device="cuda", **kw)
         out[name] = profile_frame(slic, frames[0], frames[1])
     out.update(profile_assign(frames[0], K720))
+    out.update(profile_candidates(frames, K720))
     out.update(profile_assign_float(frames, K720))
     out.update(profile_segment_sum(frames[0], more[:BATCH], K720))
     if hasattr(kernels, "knn"):  # a checkout from before the KNN has none

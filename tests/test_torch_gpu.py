@@ -47,7 +47,14 @@ minimum of a seed per pixel (``propagate_min``) and per region
 must equal their plain versions on random, serpentine, superpixel and
 one-row or one-column maps, over the kernel's roots; four shards of one card
 (``ShardedSlicExplicit``) must equal ``SlicAvx2`` at 720p, and a batch
-over a mesh's data axis the batch without one.
+over a mesh's data axis the batch without one.  The candidate kernel's
+lists and overflow flag must equal the plain build's bit for bit (720p
+K=1600 from the grid seeding and from a carried stream state, 4, 16 and 48
+slots, no and one active cluster, four stacked frames, a row shard's call
+with ``key=``, 4K K=14400, K=28000 and 40000 at 1080p, every centre in one
+band on either side of the shared-memory limit, one cell row, one cell
+column, a ragged grid), also OR-ed into a running flag; a build is at
+most two device launches (one with a running flag) and no host sync.
 """
 
 import os
@@ -1490,3 +1497,136 @@ def test_spans_stay_on_the_host_timeline(cuda):
     assert not any(e.is_user_annotation for e in spans)
     device = [e for e in events if e.device_type == on_device]
     assert device and not any(e.name.startswith("fstt.") for e in device)
+
+
+def _cand_fields(case, rng):
+    """(H, W, K, y, x, is_active as numpy [B, K], key or None, S_fixed) of
+    one candidate-build case."""
+    slices = np.load(os.path.join(ROOT, "tests", "data",
+                                  "port_720p_ref.npz"))["slice_clusters"]
+    H, W, K = 720, 1280, 1600
+    key = None
+    S_fixed = 0
+    if case in ("grid_720p", "4k_k14400", "k28000_1080p", "k40000_1080p",
+                "gh1", "gw1", "ragged"):
+        H, W, K = {"grid_720p": (720, 1280, 1600),
+                   "4k_k14400": (2160, 3840, 14400),
+                   "k28000_1080p": (1080, 1920, 28000),
+                   "k40000_1080p": (1080, 1920, 40000),
+                   "gh1": (20, 300, 10), "gw1": (300, 20, 10),
+                   "ragged": (123, 217, 57)}[case]
+        image = rng.integers(0, 256, size=(H, W, 3)).astype(np.uint8)
+        st = tcl.initialize_clusters(image, K)
+        y, x = st.y[None], st.x[None]
+        if case != "grid_720p":   # jittered off the grid
+            y = np.clip(y + rng.uniform(-4, 4, K), 0, H - 1)
+            x = np.clip(x + rng.uniform(-4, 4, K), 0, W - 1)
+        act = np.ones((1, K), np.int32)
+    elif case in ("one_band_k28000", "one_band_k30000"):
+        # every centre in one cell row: a band list of all K entries, in
+        # shared memory (28000) and past it, in the device scratch (30000)
+        H, W, K = 1080, 1920, int(case[-5:])
+        S = StaticConfig(H=H, W=W, K=K).S
+        y = rng.uniform(5 * S, 6 * S - 1, (1, K))
+        x = rng.uniform(0, W - 1, (1, K))
+        act = np.ones((1, K), np.int32)
+    elif case == "stacked_4":
+        y, x = slices[:, :, 0], slices[:, :, 1]
+        act = (rng.random((4, K)) < 0.9).astype(np.int32)
+    else:   # the JAX package's carried stream state after four frames
+        y, x = slices[3:, :, 0], slices[3:, :, 1]
+        act = np.ones((1, K), np.int32)
+        if case == "none_active":
+            act[:] = 0
+        if case == "one_active":
+            act[:] = 0
+            act[0, 777] = 1
+        if case.startswith("shard"):
+            # spatial_shardmap.assign_all: shard d of 4 row shards, local
+            # y (negative above its rows), the image's keys, out-of-range
+            # centres inactive
+            S = StaticConfig(H=H, W=W, K=K).S
+            Hl, r0 = H // 4, int(case[-1]) * H // 4
+            key = tpipe_visit_key(y, x, S, K)
+            act = act * ((y >= r0 - S - 1) & (y < r0 + Hl + S + 1))
+            y = y - r0
+            H, S_fixed = Hl, S
+    return (H, W, K, np.ascontiguousarray(y, np.float32),
+            np.ascontiguousarray(x, np.float32), act.astype(np.int32), key,
+            S_fixed)
+
+
+def tpipe_visit_key(y, x, S, K):
+    from fast_slic_tpu_torch.kernels.candidates import visit_order_key
+    return visit_order_key(torch.from_numpy(np.ascontiguousarray(y)),
+                           torch.from_numpy(np.ascontiguousarray(x)), S,
+                           K).numpy()
+
+
+CAND_CASES = ["grid_720p", "carried_720p", "none_active", "one_active",
+              "stacked_4", "shard_2", "shard_3", "4k_k14400", "k28000_1080p",
+              "k40000_1080p", "one_band_k28000", "one_band_k30000", "gh1",
+              "gw1", "ragged"]
+
+
+@pytest.mark.parametrize("C", [4, 16, 48])
+@pytest.mark.parametrize("case", CAND_CASES)
+def test_candidates_kernel_matches_plain(cuda, rng, case, C):
+    """The candidate kernel's lists and flag equal the plain build's (on
+    the CPU) bit for bit, with and without a running flag, through
+    ``pipeline.build_candidates_batched``."""
+    from fast_slic_tpu_torch.kernels import candidates
+    H, W, K, y, x, act, key, S_fixed = _cand_fields(case, rng)
+    cfg = StaticConfig(H=H, W=W, K=K, cand_slots=C, S_fixed=S_fixed)
+    GH, GW = pipeline.cell_grid_shape(cfg)
+    cpu = [torch.from_numpy(a) for a in (y, x, act)]
+    kcpu = None if key is None else torch.from_numpy(key)
+    ref, ref_ovf = candidates.plain(*cpu, cfg.S, GH, GW, C, kcpu)
+    dev = [t.to(cuda) for t in cpu]
+    kdev = None if kcpu is None else kcpu.to(cuda)
+    got, ovf = pipeline.build_candidates_batched(*dev, cfg, kdev)
+    _eq(got, ref)
+    assert bool(ovf) == bool(ref_ovf)
+    for running in (False, True):
+        flag = torch.tensor(running, device=cuda)
+        got2, ovf2 = pipeline.build_candidates_batched(*dev, cfg, kdev, flag)
+        assert ovf2 is flag
+        _eq(got2, ref)
+        assert bool(flag) == (running or bool(ref_ovf))
+    if case == "carried_720p" and C == 4:
+        assert bool(ref_ovf)
+    if case == "one_band_k30000":
+        assert bool(ref_ovf) and int((ref >= 0).sum()) == GW * 3 * C
+
+
+def test_candidates_build_launches(cuda):
+    """A build on the card is the kernel and the flag's fill, or the kernel
+    alone with a running flag; ``launch_counts()["candidates"]`` advances
+    by one a build, and no build waits on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    slices = np.load(os.path.join(ROOT, "tests", "data",
+                                  "port_720p_ref.npz"))["slice_clusters"]
+    y = torch.from_numpy(np.ascontiguousarray(slices[0, :, 0])).to(cuda)
+    x = torch.from_numpy(np.ascontiguousarray(slices[0, :, 1])).to(cuda)
+    act = torch.ones(1600, dtype=torch.int32, device=cuda)
+    cfg = StaticConfig(H=720, W=1280, K=1600)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    builds = 5
+    for kw, most in (({}, 2), ({"overflow": flag}, 1)):
+        pipeline.build_candidates(y, x, act, cfg, **kw)
+        torch.cuda.synchronize()
+        before = launch_counts()["candidates"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(builds):
+                pipeline.build_candidates(y, x, act, cfg, **kw)
+            torch.cuda.synchronize()
+        device = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        kernel = sum(n for k, n in device.items() if "candidates_kernel" in k)
+        assert kernel == builds, (kw, device)
+        assert sum(device.values()) <= most * builds, (kw, device)
+        assert launch_counts()["candidates"] == before + builds
+        _, syncs = _sync_warnings(
+            lambda: pipeline.build_candidates(y, x, act, cfg, **kw))
+        assert syncs == 0

@@ -394,8 +394,8 @@ def test_candidate_overflow_escalation(monkeypatch, image_factory, cls):
     real = ssm.pipeline.build_candidates
     slots = []
 
-    def full(y, x, act, cfg, key=None):
-        cand, ovf = real(y, x, act, cfg, key)
+    def full(y, x, act, cfg, key=None, overflow=None):
+        cand, ovf = real(y, x, act, cfg, key, overflow)
         slots.append(cfg.cand_slots)
         return cand, ovf | (cfg.cand_slots < 48)
 
