@@ -1,6 +1,7 @@
-"""Faults planted in the program's timed path, which ``correct`` has to
-catch: each breaks the program's public call underneath the harness and
-returns a function that takes the fault out again.
+"""Faults planted in the SLIC program's timed path, which ``correct`` has
+to catch: each breaks the program's public call underneath the harness and
+returns a function that takes the fault out again.  The SLIC drivers
+(``drivers/stream.py``, ``stills.py``, ``batch.py``) list and plant them.
 
 - ``state unchanged``: a call returns its labels but leaves the carried
   clusters as they were before it;
@@ -10,8 +11,8 @@ returns a function that takes the fault out again.
 - ``half the batch left out``: the second half of a batch's labels are a
   copy of the first half's.
 
-Used by ``control.py --fault`` on the card at a cell's own size and by the
-tests on the CPU.
+Used through a driver by ``control.py --fault`` on the card at a cell's
+own size and by the tests on the CPU.
 """
 
 from __future__ import annotations
@@ -22,15 +23,9 @@ SINGLE = ("state unchanged", "answer altered", "one pixel altered")
 BATCH = ("state unchanged", "answer altered", "half the batch left out")
 
 
-def plant(fault: str, loop: str):
-    """Break the program's call of a traffic's ``loop`` ("stream",
-    "stills" or "batch") with ``fault``; returns the undo function."""
-    if loop == "batch":
-        return _plant_batch(fault)
-    return _plant_single(fault)
-
-
-def _plant_single(fault: str):
+def plant_single(fault: str):
+    """Break ``<class>.iterate`` (``runner.run_iterate``) with ``fault``;
+    returns the undo function."""
     if fault not in SINGLE:
         raise ValueError("no fault %r of a single entry" % fault)
     from fast_slic_tpu_torch import runner
@@ -50,7 +45,9 @@ def _plant_single(fault: str):
     return lambda: setattr(runner, "run_iterate", real)
 
 
-def _plant_batch(fault: str):
+def plant_batch(fault: str):
+    """Break ``BatchedSlic.iterate`` with ``fault``; returns the undo
+    function."""
     if fault not in BATCH:
         raise ValueError("no fault %r of the batch" % fault)
     from fast_slic_tpu_torch.parallel import batch

@@ -2,12 +2,31 @@
 the comparison with the plain reference, and the result line.
 
 Everything particular to a cell is found by name: the workload in
-``BENCHMARK.json``, its configuration file, ``traffic/<traffic>.json`` and
+``BENCHMARK.json``, its configuration file, ``traffic/<traffic>.json``,
+``drivers/<loop>.py`` for the traffic's ``"loop"`` and
 ``metrics/<metric>.py`` for each per-layer metric that lists the cell.
+
+A driver holds all that belongs to one kind of call:
+
+- ``entry(cfg, traffic, device)``: the program's public call, an object
+  with ``call(images)``, ``state()``, ``ties()``, ``report()`` and
+  ``ties_free`` (whether reading ``ties()`` costs nothing, so that an
+  untraced window counts them too);
+- ``Loop(cfg, traffic, seed, device, make_entry)``: the inputs drawn from
+  the seed and what a call is given (``images``, ``start``, ``call``,
+  ``keeps``, ``keep``, ``follow``, ``frames_per_call``, ``entry``);
+- ``compare(loop, kept, device)``: the numbers that the configuration's
+  ``limits`` name, and ``frames_differ``, from the plain reference;
+- ``control_entry(cfg, traffic, device)``: the weakened reference that
+  ``control.py`` puts in the program's place;
+- ``faults(cfg)`` and ``plant(fault)``: the faults that the limits must
+  catch, and a function that plants one and returns its undo;
+- ``TINY``: overrides that cut a cell to a size the CPU tests can run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -23,8 +42,26 @@ ROOT = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "fast_slic_tpu")
 
 
+@dataclasses.dataclass(frozen=True)
+class Places:
+    """Where the files of a cell are found by name."""
+
+    spec: pathlib.Path      # BENCHMARK.json
+    root: pathlib.Path      # what a configuration's "file" is relative to
+    traffic: pathlib.Path   # <traffic>.json
+    drivers: pathlib.Path   # <loop>.py
+    metrics: pathlib.Path   # <metric>.py
+
+
+def places() -> Places:
+    """The checkout's own files (a test points the harness elsewhere by
+    replacing this function)."""
+    return Places(ROOT / "BENCHMARK.json", ROOT, HERE / "traffic",
+                  HERE / "drivers", HERE / "metrics")
+
+
 def load_spec() -> dict:
-    return json.loads((ROOT / "BENCHMARK.json").read_text())
+    return json.loads(places().spec.read_text())
 
 
 def cell(spec: dict, workload: str):
@@ -35,20 +72,28 @@ def cell(spec: dict, workload: str):
     else:
         raise SystemExit("no workload %r in BENCHMARK.json" % workload)
     conf = next(c for c in spec["configs"] if c["name"] == w["config"])
-    cfg = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((HERE / "traffic" / (w["traffic"] + ".json"))
-                         .read_text())
+    at = places()
+    cfg = json.loads((at.root / conf["file"]).read_text())
+    traffic = json.loads((at.traffic / (w["traffic"] + ".json")).read_text())
     return w, cfg, traffic
+
+
+def _load(path: pathlib.Path, prefix: str):
+    spec = importlib.util.spec_from_file_location(
+        prefix + path.stem.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driver(loop: str):
+    """``drivers/<loop>.py``, the driver of a traffic's ``"loop"``."""
+    return _load(places().drivers / (loop + ".py"), "bench_driver_")
 
 
 def metric_reader(name: str):
     """``metrics/<name>.py``'s ``read``."""
-    path = HERE / "metrics" / (name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(places().metrics / (name + ".py"), "bench_metric_").read
 
 
 def forbidden_modules():
@@ -85,16 +130,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              make_entry=None, log=print):
     """One run.  ``overrides`` ({"config": {...}, "traffic": {...}})
     shrink a cell for a CPU test; ``make_entry(cfg, traffic, device)``
-    puts something else in the program's place (the controls).  Returns
-    (result dict, checks dict {name: [value, limit]}, every number the
-    comparison gave)."""
+    puts something else in the program's place (the controls; the
+    driver's ``entry`` by default).  Returns (result dict, checks dict
+    {name: [value, limit]}, every number the comparison gave)."""
     t0 = time.perf_counter() if t0 is None else t0
     if str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     import torch
 
     import devtrace
-    import loops
     import roofline
 
     spec = load_spec()
@@ -103,8 +147,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         cfg.update(overrides.get("config", {}))
         traffic.update(overrides.get("traffic", {}))
     cuda = torch.device(device).type == "cuda"
+    drv = driver(traffic["loop"])
     if make_entry is None:
-        make_entry = loops.program_entry
+        make_entry = drv.entry
 
     # -- set-up: the kernels, the frames, a warm-up on the same traffic
     marks = {"imports": time.perf_counter() - t0}
@@ -117,8 +162,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         _lib.library()
         marks["kernels"] = time.perf_counter() - k0
     f0 = time.perf_counter()
-    loop = loops.Loop(cfg, traffic, seed, device,
-                      lambda: make_entry(cfg, traffic, device))
+    loop = drv.Loop(cfg, traffic, seed, device,
+                    lambda: make_entry(cfg, traffic, device))
     marks["frames"] = time.perf_counter() - f0
     if cuda:
         torch.cuda.synchronize()
@@ -138,7 +183,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     # -- the measured window: a closed loop from a fresh program
     rec = Records(cfg, traffic)
     rng = np.random.default_rng([int(seed), 3])
-    count_ties = trace or traffic["loop"] != "batch"  # free but for a batch
     kept = {}
     lat, ends = [], []
     keep_s = 0.0                # the comparison's bookkeeping in the window
@@ -159,8 +203,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         if sampled:
             kept[t] = loop.keep(entry, out, before)
         keep_s += (c0 - k0) + (time.perf_counter() - c1)
-        if count_ties:
+        if trace or entry.ties_free:
             rec.tie_frames += entry.ties()
+            rec.frames += loop.frames_per_call
         if trace:
             rec.reports.append(entry.report())
         t += 1
@@ -172,7 +217,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if calls - 1 not in kept and not loop.follow:
         kept[calls - 1] = loop.keep(entry, out)
     frames = calls * loop.frames_per_call
-    rec.frames = frames if count_ties else 0
     q = statistics.quantiles(lat, n=4) if len(lat) > 1 else lat * 3
     half = sum(e < window_s / 2 for e in ends)
     log("window: %d calls, %d frames in %.6f s; latency median %.6f ms, "
@@ -181,7 +225,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         % (calls, frames, window_s, 1e3 * statistics.median(lat),
            1e3 * float(np.percentile(lat, 95)), 1e3 * q[0], 1e3 * q[2],
            1e3 * max(lat), half, calls - half,
-           rec.tie_frames if count_ties else "not counted"))
+           rec.tie_frames if rec.frames else "not counted"))
     log("host in the window: %.6f s of CPU; %d calls kept for the "
         "comparison, their bookkeeping %.6f s" % (cpu_s, len(kept), keep_s))
 
@@ -212,7 +256,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
     r0 = time.perf_counter()
-    numbers = loops.compare(loop, kept, device)
+    numbers = drv.compare(loop, kept, device)
     log("reference: %d of %d calls compared, %.3f s; %s"
         % (len(kept), calls, time.perf_counter() - r0, json.dumps(numbers)))
     checks = {name: [numbers[name], limit]

@@ -1,13 +1,7 @@
-"""The call loops a traffic file chooses (its ``"loop"`` key), the program
-entries they drive, and the comparison of what the timed calls returned
-with the plain reference.
-
-- ``stream``: one object of the configuration's class, one frame a call,
-  clusters carried from call to call (a live video pipeline);
-- ``batch``: one ``BatchedSlic``, one frame of each of ``streams`` streams
-  a call, the labels left on the device (several cameras at once);
-- ``stills``: a new object of the class for every image (preprocessing a
-  set of photographs).
+"""What the SLIC drivers share (``drivers/stream.py``, ``batch.py`` and
+``stills.py``): the program entries they drive, the plain reference in the
+program's place (the controls), the frames a call is given, and the
+comparison of what the timed calls returned with the plain reference.
 
 Each call is a closed loop: the next starts when the last one's results
 are ready.
@@ -36,6 +30,8 @@ def params(cfg: dict) -> slic_ref.Params:
 class SingleEntry:
     """``<class>(num_components=K, ...).iterate(frame)`` of the program."""
 
+    ties_free = True
+
     def __init__(self, cfg: dict, device):
         import fast_slic_tpu_torch as fst
         cls = getattr(fst, cfg["class"])
@@ -62,7 +58,10 @@ class SingleEntry:
 
 class BatchEntry:
     """``BatchedSlic(num_components=K, batch_mode=..., ...).iterate(frames)``
-    of the program; ready once the device has finished."""
+    of the program; ready once the device has finished.  Its tie flags
+    stay on the device: reading them is a sync, left to traced runs."""
+
+    ties_free = False
 
     def __init__(self, cfg: dict, device, batch_mode: str):
         from fast_slic_tpu_torch.parallel.batch import BatchedSlic
@@ -96,6 +95,8 @@ class BatchEntry:
 class ReferenceEntry:
     """The plain reference in the program's place (the controls)."""
 
+    ties_free = True
+
     def __init__(self, cfg: dict, device, opts: slic_ref.Options):
         self.p, self.opts, self.device = params(cfg), opts, device
         self.st = None
@@ -118,59 +119,39 @@ class ReferenceEntry:
         return None
 
 
-def program_entry(cfg: dict, traffic: dict, device):
-    if traffic["loop"] == "batch":
-        return BatchEntry(cfg, device, traffic["batch_mode"])
-    return SingleEntry(cfg, device)
+def control_options(cfg: dict) -> slic_ref.Options:
+    """The configuration's ``"control"``: LSC in bfloat16, or equal
+    distances given to the smallest cluster number instead of the
+    reference's visit order."""
+    c = dict(cfg["control"])
+    if "lsc_dtype" in c:
+        c["lsc_dtype"] = getattr(torch, c["lsc_dtype"])
+    return slic_ref.Options(**c)
+
+
+def control_entry(cfg: dict, traffic: dict, device) -> ReferenceEntry:
+    return ReferenceEntry(cfg, device, control_options(cfg))
 
 
 # -- traffic ------------------------------------------------------------------
 
 class Loop:
-    """The frames of one run and what a call of it is given."""
+    """What a call of a run is given; ``images(t)`` is the driver's."""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device,
-                 make_entry):
+    streams = 1
+
+    def __init__(self, cfg: dict, traffic: dict, make_entry):
         self.cfg, self.traffic = cfg, traffic
         self.make_entry = make_entry      # () -> a fresh entry
-        H, W = cfg["height"], cfg["width"]
-        t = traffic
-        if t["loop"] == "stills":
-            # a pool drawn from the seed, large enough that the share of
-            # stills that tie at the top-K boundary (and pay the exact
-            # selection) settles from seed to seed; the seed orders it too
-            self.pool = frames_lib.stills(H, W, t["pool"], t["crop_scale"],
-                                          t["brightness"], t["noise_sigma"],
-                                          seed, device)
-            self.order = np.random.default_rng([int(seed), 5]).permutation(
-                t["pool"])
-            self.streams = 1
-        else:
-            self.streams = t["streams"]
-            self.clips = [frames_lib.clip(H, W, t["clip_frames"], t["pan_px"],
-                                          t["noise_sigma"], seed, s, device)
-                          for s in range(self.streams)]
         self.entry = None
 
     @property
     def frames_per_call(self) -> int:
         return self.streams
 
-    def images(self, t: int):
-        """Call t's frames [streams, H, W, 3] and their ids."""
-        if self.traffic["loop"] == "stills":
-            i = int(self.order[t % len(self.pool)])
-            return self.pool[i:i + 1], (i,)
-        n = self.traffic["clip_frames"]
-        period = 2 * (n - 1)
-        ids = tuple(frames_lib.ping_pong(t, n, s * period // self.streams)
-                    for s in range(self.streams))
-        return np.stack([c[f] for c, f in zip(self.clips, ids)]), ids
-
     def start(self):
-        """A fresh program for the timed calls (stills: one a call)."""
-        self.entry = None if self.traffic["loop"] == "stills" else \
-            self.make_entry()
+        """A fresh program for the timed calls."""
+        self.entry = self.make_entry()
 
     def call(self, t: int):
         """One public call; returns (entry, output)."""
@@ -200,6 +181,29 @@ class Loop:
         return out, entry.state(), before
 
 
+class Clips(Loop):
+    """``streams`` clips from the seed, one frame of each a call, each
+    played back and forth a share of the period apart."""
+
+    def __init__(self, cfg: dict, traffic: dict, seed: int, device,
+                 make_entry):
+        super().__init__(cfg, traffic, make_entry)
+        t = traffic
+        self.streams = t["streams"]
+        self.clips = [frames_lib.clip(cfg["height"], cfg["width"],
+                                      t["clip_frames"], t["pan_px"],
+                                      t["noise_sigma"], seed, s, device)
+                      for s in range(self.streams)]
+
+    def images(self, t: int):
+        """Call t's frames [streams, H, W, 3] and their ids."""
+        n = self.traffic["clip_frames"]
+        period = 2 * (n - 1)
+        ids = tuple(frames_lib.ping_pong(t, n, s * period // self.streams)
+                    for s in range(self.streams))
+        return np.stack([c[f] for c, f in zip(self.clips, ids)]), ids
+
+
 # -- the comparison -----------------------------------------------------------
 
 def partition_disagreement(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -216,24 +220,32 @@ def partition_disagreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return 1.0 - float(best.sum()) / a.numel()
 
 
-def compare(loop: Loop, kept: dict, device):
-    """Run the reference over the frames of calls up to the last kept one
-    and compare each kept call (t -> (labels, state after, state before)).
-    With ``loop.follow`` each kept call starts from the program's state
-    before it (call 0 from the seeding) and no other call runs.  Returns
-    the numbers compared: pixels whose label differs (their total, and the
-    largest share in one frame), the largest partition disagreement of a
-    frame, frames with any label differing, the largest difference of a
-    cluster's y, x, member count, L, a or b, and the largest share of a
-    frame's clusters whose centre differs."""
-    p = params(loop.cfg)
-    tables = slic_ref.lab_tables()
-    out = dict(labels_differ_px=0, labels_differ_share_max=0.0,
-               partition_disagree_max=0.0, frames_differ=0,
-               state_differ_max=0.0, clusters_differ_share_max=0.0)
+class Judge:
+    """The reference's calls and the numbers compared: pixels whose label
+    differs (their total, and the largest share in one frame), the largest
+    partition disagreement of a frame, frames with any label differing,
+    the largest difference of a cluster's y, x, member count, L, a or b,
+    and the largest share of a frame's clusters whose centre differs."""
 
-    def judge(labels, state, ref_labels, ref_state):
-        labels = torch.as_tensor(labels).to(device).long()
+    def __init__(self, cfg: dict, device):
+        self.p, self.device = params(cfg), device
+        self.tables = slic_ref.lab_tables()
+        self.out = dict(labels_differ_px=0, labels_differ_share_max=0.0,
+                        partition_disagree_max=0.0, frames_differ=0,
+                        state_differ_max=0.0, clusters_differ_share_max=0.0)
+
+    def seed(self, images: np.ndarray) -> slic_ref.State:
+        return slic_ref.seed_state(images, self.p.K, self.device)
+
+    def run(self, images: np.ndarray, st: slic_ref.State):
+        """The reference's labels and state after one call from ``st``."""
+        lab = slic_ref.iterate(torch.from_numpy(images).to(self.device), st,
+                               self.p, tables=self.tables)
+        return lab, st.yxmrgb()
+
+    def __call__(self, labels, state, ref_labels, ref_state):
+        out = self.out
+        labels = torch.as_tensor(labels).to(self.device).long()
         diff = labels != ref_labels
         per_frame = diff.reshape(diff.shape[0], -1).float().mean(1)
         out["labels_differ_px"] += int(diff.sum())
@@ -250,33 +262,28 @@ def compare(loop: Loop, kept: dict, device):
         out["clusters_differ_share_max"] = max(
             out["clusters_differ_share_max"], float(moved.max()))
 
-    def run(images, st):
-        lab = slic_ref.iterate(torch.from_numpy(images).to(device), st, p,
-                               tables=tables)
-        return lab, st.yxmrgb()
 
-    if loop.traffic["loop"] == "stills":
-        done = {}
-        for t in sorted(kept):
-            i = loop.images(t)[1][0]
-            if i not in done:
-                img = loop.pool[i:i + 1]
-                done[i] = run(img, slic_ref.seed_state(img, p.K, device))
-            judge(*kept[t][:2], *done[i])
-    elif loop.follow:
+def compare_clips(loop: Clips, kept: dict, device) -> dict:
+    """Run the reference over the frames of calls up to the last kept one
+    and compare each kept call (t -> (labels, state after, state before)).
+    With ``loop.follow`` each kept call starts from the program's state
+    before it (call 0 from the seeding) and no other call runs.  Returns
+    ``Judge``'s numbers."""
+    judge = Judge(loop.cfg, device)
+    if loop.follow:
         for t in sorted(kept):
             images, _ = loop.images(t)
             before = kept[t][2]
-            st = (slic_ref.seed_state(images, p.K, device) if t == 0
+            st = (judge.seed(images) if t == 0
                   else slic_ref.state_from_yxmrgb(before, device))
-            judge(*kept[t][:2], *run(images, st))
+            judge(*kept[t][:2], *judge.run(images, st))
     else:
         st = None
         for t in range(max(kept) + 1 if kept else 0):
             images, _ = loop.images(t)
             if st is None:
-                st = slic_ref.seed_state(images, p.K, device)
-            ref = run(images, st)
+                st = judge.seed(images)
+            ref = judge.run(images, st)
             if t in kept:
                 judge(*kept[t][:2], *ref)
-    return out
+    return judge.out

@@ -14,12 +14,6 @@ HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent))           # the harness's modules
 sys.path.insert(0, str(HERE.parent.parent))    # the program
 
-# the tiny size every CPU run of a cell is cut to
-TINY = {"config": {"height": 72, "width": 96, "num_components": 24},
-        "traffic": {"clip_frames": 4, "pool": 3, "warmup_calls": 1,
-                    "trace_calls": 2}}
-
-
 @pytest.fixture
 def cuda():
     """Skips the test when there is no CUDA card (decided when the test
@@ -30,7 +24,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def tiny() -> dict:
-    """TINY, as a fresh copy."""
+def driver_of(workload: str):
+    """(the workload's driver, its configuration dict)."""
+    import harness
+    _, cfg, traffic = harness.cell(harness.load_spec(), workload)
+    return harness.driver(traffic["loop"]), cfg
+
+
+def tiny(workload: str) -> dict:
+    """The size a CPU run of the workload is cut to: its driver's
+    ``TINY``, as a fresh copy."""
     import copy
-    return copy.deepcopy(TINY)
+    return copy.deepcopy(driver_of(workload)[0].TINY)

@@ -49,11 +49,12 @@ def test_resize_matches_the_numpy_formula():
 
 
 def test_stills_pool_and_order_are_drawn_from_the_seed():
-    import loops
+    import harness
     cfg = {"height": 24, "width": 32}
     traffic = {"loop": "stills", "pool": 6, "crop_scale": [0.6, 1.0],
                "brightness": 24, "noise_sigma": 2.0}
-    runs = [loops.Loop(cfg, traffic, s, "cpu", None) for s in (1, 1, 2)]
+    Loop = harness.driver(traffic["loop"]).Loop
+    runs = [Loop(cfg, traffic, s, "cpu", None) for s in (1, 1, 2)]
     seqs = [[r.images(t)[1][0] for t in range(6)] for r in runs]
     assert seqs[0] == seqs[1] and seqs[0] != seqs[2]
     assert sorted(seqs[0]) == sorted(seqs[2]) == list(range(6))

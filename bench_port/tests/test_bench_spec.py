@@ -10,6 +10,9 @@ import harness
 SPEC = harness.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+# what a driver provides (harness.py's docstring)
+DRIVER = ("entry", "Loop", "compare", "control_entry", "faults", "plant",
+          "TINY")
 
 
 def test_keys_and_limits():
@@ -19,6 +22,7 @@ def test_keys_and_limits():
     assert SPEC["paths"] == ["bench_port"]
     assert 1 <= SPEC["run_seconds"] <= 51
     cells = len(SPEC["workloads"])
+    assert all(w["chips"] in (1, 4) for w in SPEC["workloads"])
     fours = sum(w["chips"] == 4 for w in SPEC["workloads"])
     assert fours <= max(1, cells // 4)
     assert len(json.dumps(SPEC)) < 64 * 1024
@@ -45,23 +49,29 @@ def test_names_units_and_entries():
 
 @pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
 def test_each_cell_finds_its_files(w):
-    """The configuration, traffic and per-layer readers of every cell are
-    found by name, and the cell reports a per-layer metric."""
+    """The configuration, traffic, driver and per-layer readers of every
+    cell are found by name, and the cell reports a per-layer metric."""
     _, cfg, traffic = harness.cell(SPEC, w["name"])
-    assert traffic["loop"] in ("stream", "batch", "stills")
-    assert cfg["limits"] and cfg["control"]
+    drv = harness.driver(traffic["loop"])
+    for name in DRIVER:
+        assert hasattr(drv, name), (traffic["loop"], name)
+    assert drv.faults(cfg), "no fault for the limits to catch"
+    assert cfg["limits"] and all(
+        isinstance(v, (int, float)) for v in cfg["limits"].values())
     layer = [m for m in SPEC["per_layer"]
              if w["name"] in m.get("workloads", [w["name"]])]
     assert layer
     for m in layer:
         assert callable(harness.metric_reader(m["name"]))
-    assert w["chips"] == 1 and len(w["why"]) <= 200
+    assert len(w["why"]) <= 200
 
 
 @pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
 def test_configs(c):
     assert c["file"].startswith("bench_port/configs/")
-    assert c["reduced"] == []
+    cfg = json.loads((harness.ROOT / c["file"]).read_text())
+    assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+    assert all(NAME.match(k) and k in cfg for k in c["reduced"])
     assert c["source"].startswith("https://")
     used = [w for w in SPEC["workloads"] if w["config"] == c["name"]]
     assert used
