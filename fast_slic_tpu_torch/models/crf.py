@@ -14,6 +14,14 @@ message of node i is a gather over its D neighbours,
 JAX package takes as a product with a densified ``[T, N, N]`` matrix, a
 TPU workaround.  Everything is float32 and no step is a matrix product, so
 TF32 never applies.
+
+Tracing (``utils/timing``): ``push_slic_frame`` runs in the span
+``fstt.crf.push``; each :meth:`SimpleCRF.inference` is a timer section
+``crf_inference`` (span ``fstt.crf.inference``) with the children
+``crf_stage``, ``crf_energies`` and ``crf_meanfield`` (spans
+``fstt.crf.stage``, ``.energies``, ``.meanfield``), and the posteriors'
+download is the span ``fstt.crf.posteriors_to_host``.  Every transfer goes
+through ``to_device`` / ``to_host``, which count it in ``COUNTS``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from ..model import resolve_device
+from ..utils.timing import Timer, span, spanned, to_device, to_host
 
 
 class CRFParams:
@@ -347,6 +356,7 @@ class SimpleCRF:
         self._dl_cache = None  # (device stack, host copy) of posteriors
         self._energy_cache = None  # staged energies per graph+params
         self._compat_cache = None  # (compat key, device tensor)
+        self._timer = None  # the last inference's
 
     # params as properties, mirroring csimple_crf.pyx:248-302
     def _param_prop(name):  # noqa: N805
@@ -404,6 +414,7 @@ class SimpleCRF:
         except KeyError:
             raise IndexError("Time out of range") from None
 
+    @spanned("crf.push")
     def push_slic_frame(self, slic, knn=None):
         """Wire a Slic result into a new frame (csimple_crf.pyx:326-334)."""
         frame = self.push_frame()
@@ -426,8 +437,19 @@ class SimpleCRF:
         (one [T, C, N] device->host transfer no matter how many frames
         materialize from it)."""
         if self._dl_cache is None or self._dl_cache[0] is not stack:
-            self._dl_cache = (stack, stack.cpu().numpy())
+            with span("crf.posteriors_to_host"):
+                self._dl_cache = (stack, to_host(stack).numpy())
         return self._dl_cache[1]
+
+    @property
+    def last_timing_report(self) -> str:
+        """The last :meth:`inference` as the reference's nested JSON: the
+        section ``crf_inference`` (durations in microseconds; on the card
+        device time between CUDA events) with ``crf_stage``,
+        ``crf_energies`` and ``crf_meanfield``, and under ``counters`` the
+        host syncs and bytes that it moved (its staging).  "" before any
+        inference.  Reading it synchronises with the device."""
+        return "" if self._timer is None else self._timer.report()
 
     def inferred_stack(self):
         """The [T, C, N] float32 posteriors left on the device by the last
@@ -451,8 +473,8 @@ class SimpleCRF:
     def _compat(self):
         key = tuple(float(v) for v in self.compat_by_class)
         if self._compat_cache is None or self._compat_cache[0] != key:
-            self._compat_cache = (key, torch.tensor(key, dtype=torch.float32,
-                                                    device=self.device))
+            self._compat_cache = (key, to_device(
+                torch.tensor(key, dtype=torch.float32), self.device))
         return self._compat_cache[1]
 
     def inference(self, max_iter):
@@ -468,42 +490,52 @@ class SimpleCRF:
         cycle uploads nothing."""
         if not self._frames:
             return
+        timer = Timer(self.device)
+        with timer.scope("crf_inference", "crf.inference"):
+            self._inference(timer, int(max_iter))
+        self._timer = timer
+
+    def _inference(self, timer, max_iter: int):
         frames = list(self._frames.values())
         T, N = len(frames), self.num_nodes
         dev = self.device
-        if self._cache is None:
-            D = max(1, max(int(f._nbr.shape[1]) for f in frames))
-            nbr = np.full([T, N, D], -1, np.int32)
-            for t, f in enumerate(frames):
-                nbr[t, :, : f._nbr.shape[1]] = f._nbr
-            self._cache = tuple(torch.from_numpy(a).to(dev) for a in (
-                nbr, np.stack([f._yxmrgb for f in frames]),
-                np.stack([f._unaries for f in frames])))
+        with timer.scope("crf_stage", "crf.stage"):
+            if self._cache is None:
+                D = max(1, max(int(f._nbr.shape[1]) for f in frames))
+                nbr = np.full([T, N, D], -1, np.int32)
+                for t, f in enumerate(frames):
+                    nbr[t, :, : f._nbr.shape[1]] = f._nbr
+                self._cache = tuple(
+                    to_device(torch.from_numpy(a), dev) for a in (
+                        nbr, np.stack([f._yxmrgb for f in frames]),
+                        np.stack([f._unaries for f in frames])))
         nbr_d, yxmrgb_d, unaries_d = self._cache
 
-        params = self.params.as_array()
-        params_key = tuple(float(v) for v in params)
-        if (self._energy_cache is None
-                or self._energy_cache[0] is not self._cache
-                or self._energy_cache[1] != params_key):
-            energies = _energies(yxmrgb_d, nbr_d,
-                                 torch.from_numpy(params).to(dev))
-            self._energy_cache = (self._cache, params_key, energies)
-        energies = self._energy_cache[2]
+        with timer.scope("crf_energies", "crf.energies"):
+            params = self.params.as_array()
+            params_key = tuple(float(v) for v in params)
+            if (self._energy_cache is None
+                    or self._energy_cache[0] is not self._cache
+                    or self._energy_cache[1] != params_key):
+                energies = _energies(yxmrgb_d, nbr_d, to_device(
+                    torch.from_numpy(params), dev))
+                self._energy_cache = (self._cache, params_key, energies)
+            energies = self._energy_cache[2]
 
-        modes = {f._q_mode for f in frames}
-        if modes == {"unary"}:
-            q_in = torch.exp(-unaries_d)
-        elif modes == {"device"} and all(
-                f._q_stack is not None
-                and f._q_stack[0] is frames[0]._q_stack[0]
-                and f._q_stack[1] == t for t, f in enumerate(frames)):
-            q_in = frames[0]._q_stack[0]  # continue from the device stack
-        else:
-            q_in = torch.from_numpy(np.stack(
-                [f._materialize_q() for f in frames])).to(dev)
-        out = _meanfield(q_in, unaries_d, energies, self._compat(),
-                         int(max_iter))
+        with timer.scope("crf_meanfield", "crf.meanfield"):
+            modes = {f._q_mode for f in frames}
+            if modes == {"unary"}:
+                q_in = torch.exp(-unaries_d)
+            elif modes == {"device"} and all(
+                    f._q_stack is not None
+                    and f._q_stack[0] is frames[0]._q_stack[0]
+                    and f._q_stack[1] == t for t, f in enumerate(frames)):
+                q_in = frames[0]._q_stack[0]  # continue from the device stack
+            else:
+                q_in = to_device(torch.from_numpy(np.stack(
+                    [f._materialize_q() for f in frames])), dev)
+            out = _meanfield(q_in, unaries_d, energies, self._compat(),
+                             max_iter)
         self._dl_cache = None
         for t, f in enumerate(frames):
             f._q_mode = "device"

@@ -14,7 +14,10 @@ The counterpart of ``fast_slic_tpu/ops/graph.py`` (reference
 Each takes numpy arrays or tensors and returns numpy arrays, like the JAX
 package's functions.  The device decides, as in the rest of the package:
 tensor arguments are used where they lie, and numpy input goes to
-``device``, the card by default (which raises without a GPU).
+``device``, the card by default (which raises without a GPU).  Uploads
+and downloads go through ``utils/timing.to_device`` / ``to_host``, which
+count them; :func:`knn` and :func:`density_to_mask` run in the spans
+``fstt.graph.knn`` and ``fstt.graph.density_to_mask``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from ..kernels.knn import knn as _knn_kernel
 from ..model import resolve_device
+from ..utils.timing import spanned, to_device, to_host
 
 MAX_ADJ_NEIGHBORS = 12  # fast-slic.cpp:17
 
@@ -98,7 +102,7 @@ def _as_tensor(a, dev: torch.device) -> torch.Tensor:
     uploaded to ``dev``."""
     if isinstance(a, torch.Tensor):
         return a
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return to_device(torch.from_numpy(np.ascontiguousarray(a)), dev)
 
 
 def adjacency(assignment, K: int, device=None):
@@ -201,6 +205,7 @@ def adjacency_matrix(assignment, K: int, device=None):
     return nbr.cpu().numpy(), counts.cpu().numpy().astype(np.int64)
 
 
+@spanned("graph.knn")
 def knn(clusters, num_neighbors: int, shape, device=None):
     """Grid-bucketed nearest-neighbour lists (fast_slic_knn_connectivity)
     as (nbr [K, D] int32 padded -1, lens [K] int64), numpy, each row in
@@ -219,8 +224,8 @@ def knn(clusters, num_neighbors: int, shape, device=None):
     xs = _as_tensor(clusters.x, dev).to(torch.float32)
     K, m = ys.shape[0], max(int(num_neighbors), 0)
     # nbr's rows, then the counts: one download
-    packed = _knn_kernel(ys, xs, int(shape[0]), int(shape[1]), m,
-                         packed=True).cpu().numpy()
+    packed = to_host(_knn_kernel(ys, xs, int(shape[0]), int(shape[1]), m,
+                                 packed=True)).numpy()
     nbr = packed[:K * m].reshape(K, m)
     lens = packed[K * m:].astype(np.int64)
     D = max(1, int(lens.max()) if lens.size else 1)
@@ -249,6 +254,7 @@ def mask_density(mask, assignment, clusters, device=None) -> np.ndarray:
     return dens.to(torch.uint8).cpu().numpy()
 
 
+@spanned("graph.density_to_mask")
 def density_to_mask(densities, assignment, K: int,
                     device=None) -> np.ndarray:
     """Broadcast per-cluster densities back to the pixels
@@ -259,4 +265,4 @@ def density_to_mask(densities, assignment, K: int,
     valid = (a >= 0) & (a < K)
     out = torch.where(valid, d[torch.where(valid, a, 0)],
                       torch.zeros((), dtype=torch.uint8, device=dev))
-    return out.cpu().numpy()
+    return to_host(out).numpy()

@@ -14,7 +14,7 @@ Elsewhere the host clock is used.
 :func:`span` (and the decorator :func:`spanned`) records a host range
 ``fstt.<name>`` that ``torch.profiler`` sees as an operator event, on the
 same clock as the device's kernels (CUPTI); every :meth:`Timer.scope` opens
-one of its own name.  Spans nest on the host thread, so the outermost one
+one, of its own name unless it is given another.  Spans nest on the host thread, so the outermost one
 of a public call stands for the call.  With no profiler running a span
 stores nothing.
 
@@ -128,8 +128,10 @@ class Timer:
                             for k in REPORTED}
 
     @contextmanager
-    def scope(self, name: str):
-        with span(name):
+    def scope(self, name: str, span_name: str = None):
+        """The section ``name`` inside :func:`span` ``span_name`` (by
+        default ``name``)."""
+        with span(name if span_name is None else span_name):
             self.begin(name)
             try:
                 yield

@@ -40,7 +40,8 @@ plain version (also in ranges of cells); the adjacency (a hot node past the
 12-neighbour cap, labels outside [0, K), a 720p frame) and the densities
 on the card those on the CPU; the CRF's class sum on the card the loop's
 bits; and ``SimpleCRF`` at 720p (N=1600, C=21, four frames) the CPU's and
-the JAX package's posteriors within rtol 2e-4, atol 1e-6.  The region
+the JAX package's posteriors within rtol 2e-4, atol 1e-6, and the
+counters of a sliding-window call the bytes its cycle moved.  The region
 minimum of a seed per pixel (``propagate_min``) and per region
 (``region_table``), and one seam of the sharded CCA's fixpoint
 (``seam_min``, its changed flag too, and a seam where no label meets)
@@ -1128,6 +1129,49 @@ def test_crf_on_gpu_matches_cpu(cuda, graph_kind):
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
         assert (got.argmax(1) == want.argmax(1)).mean() >= 0.999
     np.testing.assert_allclose(outs[0], outs[1], rtol=2e-4, atol=1e-6)
+
+
+def test_crf_window_report_counts_its_transfers(cuda):
+    """A sliding-window call on the card (``SlicAvx2``, the KNN push, a pop
+    past four frames, ``inference(5)``, the newest posteriors, their
+    classes broadcast): the counters see the cycle's transfers, the
+    centres and the window up, the lists and the posteriors down, and the
+    CRF's report those inside the inference (the window's staging)."""
+    import json
+
+    from fast_slic_tpu_torch import SimpleCRF
+    from fast_slic_tpu_torch.utils.timing import COUNTS, REPORTED
+    K, C, m = 64, 21, 4
+    img = np.random.default_rng(5).integers(0, 256, (96, 128, 3),
+                                            dtype=np.uint8)
+    slic = SlicAvx2(num_components=K, device=cuda)
+    crf = SimpleCRF(C, K, device=cuda)
+    for t in range(6):
+        labels = slic.iterate(np.roll(img, 4 * t, axis=1))
+        before = {k: COUNTS[k] for k in REPORTED}
+        fr = crf.push_slic_frame(slic, knn=m)
+        fr.set_proba(np.random.default_rng(t).dirichlet(
+            np.ones(C), K).T.astype(np.float32))
+        if crf.num_frames > 4:
+            crf.pop_frame()
+        crf.initialize()
+        crf.inference(5)
+        cls = fr.get_inferred().argmax(0).astype(np.uint8)
+        moved = {k: COUNTS[k] - before[k] for k in REPORTED}
+        slic.slic_model.broadcast_density_to_mask(cls, labels)
+        rep = json.loads(crf.last_timing_report)
+        T = crf.num_frames
+        D = max(crf.get_frame(i)._nbr.shape[1]
+                for i in range(crf.first_time, crf.last_time + 1))
+        staged = 4 * T * K * (D + 6 + C) + 28 + (4 * C if t == 0 else 0)
+        assert [c["name"] for c in rep["children"]] == [
+            "crf_stage", "crf_energies", "crf_meanfield"]
+        assert rep["counters"] == {"host_syncs": 4 + (t == 0),
+                                   "h2d_bytes": staged, "d2h_bytes": 0}, t
+        assert moved == {
+            "host_syncs": 8 + (t == 0), "h2d_bytes": 8 * K + staged,
+            "d2h_bytes": 4 * (K * m + K) + 4 * T * C * K}, t
+        assert rep["duration"] >= sum(c["duration"] for c in rep["children"])
 
 
 @pytest.mark.parametrize("shape", [(4, 21, 1600), (1, 3, 7), (3, 64, 33)])

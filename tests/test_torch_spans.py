@@ -166,3 +166,109 @@ def test_spanned_keeps_the_function():
     assert fn(1, b=3) == 4 and fn.__doc__ == "doc" and fn.__name__ == "fn"
     spans = spans_of(lambda: fn(1))
     assert counts(spans) == {"fstt.test.fn": 1}
+
+
+# -- the CRF window (the benchmark's crf720.window call)
+
+C, KNN = 5, 4
+CRF_SPANS = ("crf.push", "crf.inference", "crf.stage", "crf.energies",
+             "crf.meanfield", "crf.posteriors_to_host", "graph.knn",
+             "graph.density_to_mask")
+
+
+def window_call(slic, crf, image, t):
+    """One call of the window: SLIC, the KNN push, the unaries, a pop past
+    four frames, the mean field, the newest posteriors and their classes
+    painted back to the pixels.  Returns what the CRF's cycle (the push to
+    the posteriors on the host) added to ``COUNTS``."""
+    labels = slic.iterate(image, max_iter=MAX_ITER)
+    before = {k: timing.COUNTS[k] for k in timing.REPORTED}
+    fr = crf.push_slic_frame(slic, knn=KNN)
+    fr.set_proba(np.random.default_rng(t).dirichlet(
+        np.ones(C), K).T.astype(np.float32))
+    if crf.num_frames > 4:
+        crf.pop_frame()
+    crf.initialize()
+    crf.inference(5)
+    cls = fr.get_inferred().argmax(0).astype(np.uint8)
+    moved = {k: timing.COUNTS[k] - before[k] for k in timing.REPORTED}
+    slic.slic_model.broadcast_density_to_mask(cls, labels)
+    return moved
+
+
+def staged(crf, first):
+    """(h2d, syncs) of an inference's staging: the window's graph,
+    features and unaries, the parameters (and the class weights, the first
+    time)."""
+    T = crf.num_frames
+    D = max(crf.get_frame(t)._nbr.shape[1]
+            for t in range(crf.first_time, crf.last_time + 1))
+    return 4 * T * K * (D + 6 + C) + 28 + (4 * C if first else 0), 4 + first
+
+
+def test_crf_window_call_records_its_spans(image):
+    slic = ft.SlicAvx2(num_components=K, device="cpu")
+    crf = ft.SimpleCRF(C, K, device="cpu")
+    assert crf.last_timing_report == ""
+    for t in range(4):
+        window_call(slic, crf, image, t)
+    spans = spans_of(lambda: window_call(slic, crf, image, 4))
+    n = counts(spans)
+    for name in CRF_SPANS:
+        assert n["fstt." + name] == 1, name
+    # each timer section has one span, under the name above
+    assert not any(name.startswith("fstt.crf_") for name in n)
+    assert not any(e.is_user_annotation for e in spans)
+    rep = json.loads(crf.last_timing_report)
+    assert rep["name"] == "crf_inference" and rep["duration"] >= 0
+    assert [c["name"] for c in rep["children"]] == [
+        "crf_stage", "crf_energies", "crf_meanfield"]
+    # nothing crosses to a device on the CPU
+    assert rep["counters"] == {"host_syncs": 0, "h2d_bytes": 0,
+                               "d2h_bytes": 0}
+
+
+def _crossing(monkeypatch):
+    """The CRF's and the graph functions' transfers counted as if each
+    crossed to a device."""
+    from fast_slic_tpu_torch.models import crf as crf_mod
+    from fast_slic_tpu_torch.ops import graph
+
+    def to_device(t, device, dtype=None):
+        out = t.to(device=device, dtype=dtype)
+        timing.COUNTS["h2d_bytes"] += out.numel() * out.element_size()
+        timing.COUNTS["host_syncs"] += 1
+        return out
+
+    def to_host(t, read=None):
+        timing.COUNTS["d2h_bytes"] += t.numel() * t.element_size()
+        timing.COUNTS["host_syncs"] += 1
+        return t.cpu() if read is None else read(t)
+
+    for mod in (crf_mod, graph):
+        monkeypatch.setattr(mod, "to_device", to_device)
+        monkeypatch.setattr(mod, "to_host", to_host)
+
+
+def test_crf_report_counts_its_cycle(image, monkeypatch):
+    """Every upload and download of the CRF and of the KNN goes through
+    ``to_device`` / ``to_host``: a cycle moves the centres up and the KNN
+    lists down, the staging up, the whole posterior stack down; the
+    report's counters are the staging's, inside the inference."""
+    _crossing(monkeypatch)
+    slic = ft.SlicAvx2(num_components=K, device="cpu")
+    crf = ft.SimpleCRF(C, K, device="cpu")
+    for t in range(6):
+        moved = window_call(slic, crf, image, t)
+        h2d, syncs = staged(crf, t == 0)
+        rep = json.loads(crf.last_timing_report)
+        assert rep["counters"] == {"host_syncs": syncs, "h2d_bytes": h2d,
+                                   "d2h_bytes": 0}, t
+        assert moved == {
+            "host_syncs": syncs + 4, "h2d_bytes": h2d + 8 * K,
+            "d2h_bytes": 4 * (K * KNN + K)
+            + 4 * crf.num_frames * C * K}, t
+    # a read of an older frame's posteriors comes from the same download
+    before = timing.COUNTS["d2h_bytes"]
+    crf.get_frame(crf.first_time).get_inferred()
+    assert timing.COUNTS["d2h_bytes"] == before
