@@ -95,7 +95,9 @@ class StaticConfig:
 
 # A flagged candidate overflow re-runs the image with 3x the slots, capped
 # at MAX_CAND_SLOTS, at most CAND_RERUNS times (fast_slic_tpu/runner.py:
-# 71-81); the single-frame runner and the row shards share the schedule.
+# 71-81); the single-frame runner and the row shards share the schedule,
+# except that the runner keeps a run at MAX_CAND_SLOTS instead of
+# repeating it.
 MAX_CAND_SLOTS = 48
 CAND_RERUNS = 2
 

@@ -1,9 +1,10 @@
 """SlicModel: the persistent state of a SLIC segmenter.
 
 The counterpart of ``fast_slic_tpu/model.py`` (reference
-``cfast_slic.pyx:15-328``).  The only state kept between ``iterate`` calls
-is the cluster array, held on the host as numpy; each call moves it to the
-model's device and back.
+``cfast_slic.pyx:15-328``).  The state kept between ``iterate`` calls is
+the cluster array, held on the host as numpy (each call moves it to the
+model's device and back), and the candidate slots of the last kept run,
+which the next call on a frame of the same shape starts at.
 """
 
 from __future__ import annotations
@@ -81,6 +82,10 @@ class SlicModel:
 
         self._clusters = cluster_lib.zeros(num_components)
         self.initialized = False
+        # ((H, W), cand_slots) of the last kept run: the next call on an
+        # (H, W) frame starts there (None: at StaticConfig's default)
+        self._carried_slots = None
+        self.last_cand_slots = None  # the slots the last iterate started at
         self.last_cca_tie = False  # the last iterate took the tie escalation
         self.last_timing_report = ""
         self.last_recorder_report = ""
@@ -94,6 +99,7 @@ class SlicModel:
                            device=self.device)
         result._clusters = self._clusters.copy()
         result.initialized = self.initialized
+        result._carried_slots = self._carried_slots
         return result
 
     @property
@@ -105,6 +111,7 @@ class SlicModel:
         self._clusters = cluster_lib.dicts_to_clusters(dicts)
         self.num_components = self._clusters.K
         self.initialized = True
+        self._carried_slots = None
 
     def to_yxmrgb(self):
         return cluster_lib.to_yxmrgb(self._clusters)
@@ -122,6 +129,15 @@ class SlicModel:
             ) from None
 
     def _static_config(self, H: int, W: int) -> StaticConfig:
+        """The call's configuration; its candidate slots are the last kept
+        run's on a frame of the same shape.  A list that does not overflow
+        is the same list at any slot count, so the carry changes no result,
+        only how often the runner re-runs (runner.run_iterate).  The count
+        never decays: the largest is what the runner keeps on almost every
+        carried frame anyway."""
+        carried = self._carried_slots
+        kw = ({"cand_slots": carried[1]}
+              if carried is not None and carried[0] == (H, W) else {})
         return StaticConfig(
             H=H, W=W, K=self.num_components,
             variant=self._variant(),
@@ -130,7 +146,7 @@ class SlicModel:
             float_color=bool(self.float_color),
             preemptive=bool(self.preemptive),
             debug_mode=bool(self.debug_mode),
-        )
+            **kw)
 
     # -- pipeline entry points ----------------------------------------------
 
@@ -143,6 +159,7 @@ class SlicModel:
         self._clusters = cluster_lib.initialize_clusters(
             image, self.num_components)
         self.initialized = True
+        self._carried_slots = None
 
     def iterate(self, image, max_iter, compactness, min_size_factor,
                 subsample_stride):
@@ -170,6 +187,8 @@ class SlicModel:
             profile=bool(self.profile),
         )
         self._clusters = res.clusters
+        self._carried_slots = ((H, W), res.cand_slots)
+        self.last_cand_slots = cfg.cand_slots
         self.last_cca_tie = res.cca_tie
         self.last_timing_report = res.timing_json
         self.last_recorder_snapshots = res.snapshots

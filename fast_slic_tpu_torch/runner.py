@@ -2,7 +2,8 @@
 
 The counterpart of ``fast_slic_tpu/runner.py:run_iterate``: moves the image
 and cluster state to the device, runs :func:`pipeline.iterate_graph`,
-re-runs with more candidate slots on overflow, escalates a CCA tie to the
+re-runs with more candidate slots on overflow (each re-run counted in
+``utils.timing.COUNTS["runner.reruns"]``), escalates a CCA tie to the
 exact selection, and returns int16 labels with -1 for unassigned, the
 timing report and, under ``debug_mode``, the recorder's snapshots.
 """
@@ -21,7 +22,7 @@ from .config import (CAND_RERUNS, UNASSIGNED, RuntimeParams, StaticConfig,
                      more_cand_slots)
 from .ops.cca import selection_rerun_device
 from .utils.recorder import Recorder, Snapshots
-from .utils.timing import Timer, span, to_device, to_host
+from .utils.timing import COUNTS, Timer, span, to_device, to_host
 
 
 class RunResult(NamedTuple):
@@ -46,8 +47,9 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
 
     If the pipeline flags candidate overflow (more than cand_slots clusters
     in a 3x3 cell neighbourhood), re-run at 3x the slots, capped at 48, at
-    most twice (fast_slic_tpu/runner.py:71-81); the snapshots are those of
-    the run that is kept.
+    most twice (fast_slic_tpu/runner.py:71-81); a run at 48 slots is kept
+    even when it overflows, since its re-run would build the same lists.
+    The snapshots are those of the run that is kept.
 
     The timing report (fast_slic_tpu/runner.py:46-66): by default
     ``iterate`` holds ``write_to_buffer`` (the uploads), the pipeline's
@@ -84,10 +86,12 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
                 out = pipeline.iterate_graph(image_t, st, cfg, scalars,
                                              params.max_iter,
                                              params.subsample_stride, timer)
-            if escalation == CAND_RERUNS or not _overflowed(out):
+            slots = more_cand_slots(cfg.cand_slots)
+            if (escalation == CAND_RERUNS or not _overflowed(out)
+                    or slots == cfg.cand_slots):
                 break
-            cfg = dataclasses.replace(
-                cfg, cand_slots=more_cand_slots(cfg.cand_slots))
+            COUNTS["runner.reruns"] += 1
+            cfg = dataclasses.replace(cfg, cand_slots=slots)
         with timer.scope("write_back"):
             tie = to_host(out.cca_tie, bool)
             if tie:

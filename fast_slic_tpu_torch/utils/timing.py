@@ -21,7 +21,8 @@ stores nothing.
 :data:`COUNTS` counts what crosses between the host and a CUDA device
 (:func:`to_device`, :func:`to_host`: ``h2d_bytes``, ``d2h_bytes`` and
 ``host_syncs``, each a wait of the host on the device) and the kernel
-launches (``launch.<entry point>``, ``kernels._lib.launch``).  A timer's
+launches (``launch.<entry point>``, ``kernels._lib.launch``), and the
+runner's candidate-overflow re-runs (``runner.reruns``).  A timer's
 top-level section carries the call's ``host_syncs``, ``h2d_bytes`` and
 ``d2h_bytes`` under ``"counters"`` in the report.
 """

@@ -55,7 +55,9 @@ slots, no and one active cluster, four stacked frames, a row shard's call
 with ``key=``, 4K K=14400, K=28000 and 40000 at 1080p, every centre in one
 band on either side of the shared-memory limit, one cell row, one cell
 column, a ragged grid), also OR-ed into a running flag; a build is at
-most two device launches (one with a running flag) and no host sync.
+most two device launches (one with a running flag) and no host sync.  A
+carried 720p ``SlicAvx2`` stream re-runs for candidate overflow on its
+first call at most, and its labels and clusters equal the JAX fixture's.
 """
 
 import os
@@ -1541,6 +1543,27 @@ def test_spans_stay_on_the_host_timeline(cuda):
     assert not any(e.is_user_annotation for e in spans)
     device = [e for e in events if e.device_type == on_device]
     assert device and not any(e.name.startswith("fstt.") for e in device)
+
+
+def test_carried_720p_stream_reruns_only_on_its_first_call(cuda):
+    """SlicAvx2(1600) carried over the fixture's four 720p frames starts
+    each call at the candidate slots of the run it kept last: it re-runs
+    at most once, on its first call, and every frame's labels and clusters
+    equal the fixture's."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import H720, K720, W720, make_frames
+    from fast_slic_tpu_torch.utils.timing import COUNTS
+    ref = np.load(os.path.join(ROOT, "tests", "data", "port_720p_ref.npz"))
+    slic = SlicAvx2(num_components=K720, device=cuda)
+    for t, f in enumerate(make_frames(4, H720, W720)):
+        before = COUNTS["runner.reruns"]
+        labels = slic.iterate(f)
+        assert COUNTS["runner.reruns"] - before <= (t == 0), t
+        np.testing.assert_array_equal(labels, ref["slice_labels"][t],
+                                      err_msg="frame %d labels" % t)
+        np.testing.assert_array_equal(
+            slic.slic_model.to_yxmrgb().astype(np.float32),
+            ref["slice_clusters"][t], err_msg="frame %d clusters" % t)
 
 
 def _cand_fields(case, rng):
