@@ -70,7 +70,7 @@ class StaticConfig:
     preemptive: bool = False   # the preemptive grid (preemptive.h)
     debug_mode: bool = False   # per-iteration recorder snapshots
     # Per-cell candidate list length (see pipeline.build_candidates); an
-    # overflow is flagged and the runner re-runs with 3x the slots (max 48).
+    # overflow is flagged and re-run on runner.rerun_slots' schedule.
     cand_slots: int = 16
     # 0 = derive S from H*W/K; a row shard of a larger image pins the
     # image's S (parallel/spatial_shardmap.py)
@@ -91,20 +91,6 @@ class StaticConfig:
             raise RuntimeError("No such real_dist_type " + repr(self.variant))
         if self.cand_slots >= 128:
             raise ValueError("cand_slots must fit in 7 bits")
-
-
-# A flagged candidate overflow re-runs the image with 3x the slots, capped
-# at MAX_CAND_SLOTS, at most CAND_RERUNS times (fast_slic_tpu/runner.py:
-# 71-81); the single-frame runner and the row shards share the schedule,
-# except that the runner keeps a run at MAX_CAND_SLOTS instead of
-# repeating it.
-MAX_CAND_SLOTS = 48
-CAND_RERUNS = 2
-
-
-def more_cand_slots(slots: int) -> int:
-    """The candidate slots of the re-run after an overflow at ``slots``."""
-    return min(3 * slots, MAX_CAND_SLOTS)
 
 
 @dataclasses.dataclass

@@ -38,7 +38,8 @@
 // (|di|, |dj|) (Euclidean), filled with the same float operations, so the
 // loop does no int-float conversion.  Each thread loads its own pixels (a
 // warp reads 128 consecutive bytes a row); staging the rows in shared
-// memory with 16-byte loads was slower (scripts/kernel_variants.py).  Stores
+// memory with 16-byte loads was slower (PERF.md §6, kernel designs that
+// lost).  Stores
 // go only to the processed rows.  What bounds it now is the slot loop's
 // instruction count and the block's staging latency, one wave of blocks at
 // B = 1.

@@ -73,11 +73,11 @@
 // centre and is computed in the loop.  Each thread loads its own pixels
 // after the staging and stores only to the processed rows.
 //
-// Shape (scripts/kernel_variants.py, on the H100): 128 threads a block,
-// one row group of kRows = 4 rows a thread, so a cell row's 8 processed
-// rows at stride 3 take 2 blocks (660 at 720p) and its 24 at stride 1
-// take 6.  Two row groups, 8 rows a thread, 2 rows a thread, and loading
-// the first step's pixels before the staging were each slower.  What
+// Shape (PERF.md §6, kernel designs that lost; on the H100): 128 threads
+// a block, one row group of kRows = 4 rows a thread, so a cell row's 8
+// processed rows at stride 3 take 2 blocks (660 at 720p) and its 24 at
+// stride 1 take 6.  Two row groups, 8 rows a thread, 2 rows a thread, and
+// loading the first step's pixels before the staging were each slower.  What
 // bounds it now is latency, not bytes or operations: a block runs its
 // three phases in turn (stage the records, load its pixels, walk the
 // slots), LSC keeps 91 registers a thread (so at most five blocks an SM),
@@ -96,8 +96,7 @@
 #include <cuda_runtime.h>
 
 namespace {
-// a named namespace, so that scripts/kernel_variants.cu can include this
-// source beside csrc/assign.cu
+// a named namespace, its names apart from csrc/assign.cu's
 namespace fassign {
 
 enum Variant { kReal = 0, kRealL2 = 1, kRealNoq = 2, kLsc = 3 };
@@ -161,7 +160,7 @@ __device__ __forceinline__ void load_rows(
 // end), so their R float chains interleave.  kTable: the spatial term of
 // real / real_l2 comes from a table over |di| + |dj| (Manhattan) or (|di|,
 // |dj|).  kPrefetch: the first step's pixels are loaded before the records
-// are staged (the library does not: scripts/kernel_variants.cu measures it)
+// are staged (the library does not: PERF.md §6, kernel designs that lost)
 template <int V, bool kManhattan, bool kTable, int G, int R, bool kPrefetch,
           bool kSpread>
 __global__ void __launch_bounds__(kCols * G)

@@ -75,7 +75,8 @@
 // row above by shuffles, and only the few label pairs where two pieces meet
 // go through shared memory, resolved by hooking and shortcutting rounds
 // with no per-thread loops.  (A shared-memory union-find, one union a pair
-// of touching runs, was slower at 720p: scripts/kernel_variants.py.)
+// of touching runs, was slower at 720p: PERF.md §6, kernel designs that
+// lost.)
 // Across tiles a chain is as long as the number of tiles a region spans
 // (1-4 for a superpixel), and only 1/16 of the pixels (the seams) take
 // part.  Parents in device memory are read through volatile loads, so a

@@ -50,8 +50,8 @@
 // Sums are unsigned, so every regrouping wraps mod 2^32 as the plain
 // version's int64 sums cast to int32 do.  Summing a warp's equal ids first
 // (__match_any_sync, __reduce_add_sync) cost more than the shared atomics
-// it saves: it made the kernel 3-5x slower on the H100 (PERF.md,
-// scripts/update_variants.py).  The update runs within 1.5x of a kernel
+// it saves: it made the kernel 3-5x slower on the H100 (PERF.md §6,
+// kernel designs that lost).  The update runs within 1.5x of a kernel
 // that only loads the same tiles (3.6 against 3.0 us a launch at 720p
 // stride 3): what bounds it now is one wave of loads and the launch, not
 // the sums.
@@ -85,7 +85,7 @@
 // tile, adds its runs and flushes behind two barriers, so what bounds it
 // now is that chain's latency, not the atomics (a lane's runs added
 // straight to device memory: 12.2 against 10.9 us a call with the zero
-// fill, scripts/kernel_variants.py).
+// fill, PERF.md §6, kernel designs that lost).
 
 #include <cstdint>
 #include <cuda_runtime.h>

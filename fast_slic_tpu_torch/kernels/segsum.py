@@ -20,7 +20,7 @@ adds each cluster's six sums to the output once a block.  One global atomic
 a value and pixel had serialised on the few clusters a warp's neighbouring
 pixels share; ids that find the table full still add to device memory
 directly, so random ids are exact too.  What bounds them now is one wave of
-loads and the launch (``scripts/update_variants.py``, ``PERF.md``).
+loads and the launch (``PERF.md`` §6, kernel designs that lost).
 
 :func:`segment_sum` and :func:`framed_segment_sum` launch one kernel with
 the same design (a block sums 1024 consecutive ids of one frame; the frame

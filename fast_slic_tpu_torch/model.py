@@ -9,10 +9,13 @@ which the next call on a frame of the same shape starts at.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
 from . import cluster as cluster_lib
+from . import runner
 from .config import (
     MAX_NUM_COMPONENTS,
     VARIANT_LSC,
@@ -82,9 +85,7 @@ class SlicModel:
 
         self._clusters = cluster_lib.zeros(num_components)
         self.initialized = False
-        # ((H, W), cand_slots) of the last kept run: the next call on an
-        # (H, W) frame starts there (None: at StaticConfig's default)
-        self._carried_slots = None
+        self._slots = runner.CarriedSlots()
         self.last_cand_slots = None  # the slots the last iterate started at
         self.last_cca_tie = False  # the last iterate took the tie escalation
         self.last_timing_report = ""
@@ -99,7 +100,7 @@ class SlicModel:
                            device=self.device)
         result._clusters = self._clusters.copy()
         result.initialized = self.initialized
-        result._carried_slots = self._carried_slots
+        result._slots = copy.copy(self._slots)
         return result
 
     @property
@@ -111,7 +112,7 @@ class SlicModel:
         self._clusters = cluster_lib.dicts_to_clusters(dicts)
         self.num_components = self._clusters.K
         self.initialized = True
-        self._carried_slots = None
+        self._slots.reset()
 
     def to_yxmrgb(self):
         return cluster_lib.to_yxmrgb(self._clusters)
@@ -129,15 +130,8 @@ class SlicModel:
             ) from None
 
     def _static_config(self, H: int, W: int) -> StaticConfig:
-        """The call's configuration; its candidate slots are the last kept
-        run's on a frame of the same shape.  A list that does not overflow
-        is the same list at any slot count, so the carry changes no result,
-        only how often the runner re-runs (runner.run_iterate).  The count
-        never decays: the largest is what the runner keeps on almost every
-        carried frame anyway."""
-        carried = self._carried_slots
-        kw = ({"cand_slots": carried[1]}
-              if carried is not None and carried[0] == (H, W) else {})
+        """The call's configuration; its candidate slots are those the
+        model carries (runner.CarriedSlots)."""
         return StaticConfig(
             H=H, W=W, K=self.num_components,
             variant=self._variant(),
@@ -146,7 +140,7 @@ class SlicModel:
             float_color=bool(self.float_color),
             preemptive=bool(self.preemptive),
             debug_mode=bool(self.debug_mode),
-            **kw)
+            cand_slots=self._slots.start(H, W))
 
     # -- pipeline entry points ----------------------------------------------
 
@@ -159,7 +153,7 @@ class SlicModel:
         self._clusters = cluster_lib.initialize_clusters(
             image, self.num_components)
         self.initialized = True
-        self._carried_slots = None
+        self._slots.reset()
 
     def iterate(self, image, max_iter, compactness, min_size_factor,
                 subsample_stride):
@@ -172,8 +166,6 @@ class SlicModel:
             raise ValueError("nchan != 3")
         H, W = int(image.shape[0]), int(image.shape[1])
         cfg = self._static_config(H, W)
-
-        from . import runner
         res = runner.run_iterate(
             cfg, image, self._clusters,
             RuntimeParams(
@@ -185,9 +177,9 @@ class SlicModel:
             ),
             self.device,
             profile=bool(self.profile),
+            carry=self._slots,
         )
         self._clusters = res.clusters
-        self._carried_slots = ((H, W), res.cand_slots)
         self.last_cand_slots = cfg.cand_slots
         self.last_cca_tie = res.cca_tie
         self.last_timing_report = res.timing_json

@@ -21,11 +21,12 @@ the flags: the candidate overflow is the any of the groups' (an
 all_gather), the tie flags stay per frame.  Labels, flags and the state
 are joined on the first group's device.
 
-Exactness is kept as in the single-frame runner: a candidate overflow
-re-runs the batch from its state before the batch with more slots, and a
-frame whose CCA ties at the top-K boundary takes the exact selection
-(``ops.cca.selection_rerun_device``).  The flags of a batch come to the
-host in one transfer, in :meth:`PendingBatch.resolve`.
+Exactness is kept by the runner's escalation: a candidate overflow
+re-runs the batch from its state before the batch on the runner's
+schedule (``runner.rerun_slots``; the batch carries the kept run's slots,
+``runner.CarriedSlots``), and a frame whose CCA ties at the top-K boundary
+takes the exact selection (``runner.tie_labels``).  The flags of a batch
+come to the host in one transfer, in :meth:`PendingBatch.resolve`.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ from .. import cluster as cluster_lib
 from ..cluster import Clusters
 from ..config import UNASSIGNED, VARIANT_LSC, StaticConfig, check_arch
 from ..model import resolve_device
-from ..ops.cca import selection_rerun_device
 from ..pipeline import derive_scalars, iterate_graph
+from ..runner import CarriedSlots, tie_labels
 from ..utils.timing import span, spanned, to_device, to_host
 from .stack import iterate_graph_stacked
 
@@ -96,7 +97,7 @@ class BatchedSlic:
         self.arch = arch
         self.check_exactness = check_exactness
         self._state = None  # a group's Clusters of [B/data, K] tensors
-        self._capacity_boost = 0
+        self._slots = CarriedSlots()
         self.last_flags = None
 
     # -- configuration -------------------------------------------------
@@ -107,14 +108,12 @@ class BatchedSlic:
                 < UNASSIGNED)
 
     def _cfg(self, H: int, W: int) -> StaticConfig:
-        kw = {}
-        if self._capacity_boost:
-            kw["cand_slots"] = min(16 * 2 ** self._capacity_boost, 48)
         return StaticConfig(
             H=H, W=W, K=self.num_components, variant=self.variant,
             convert_to_lab=bool(self.convert_to_lab),
             manhattan_spatial_dist=bool(self.manhattan_spatial_dist),
-            preemptive=bool(self.preemptive), **kw)
+            preemptive=bool(self.preemptive),
+            cand_slots=self._slots.start(H, W))
 
     # -- state ----------------------------------------------------------
     @spanned("entry.seed")
@@ -146,6 +145,7 @@ class BatchedSlic:
         self._state = [Clusters(*(x[g * Bg:(g + 1) * Bg]
                                   for x in st.fields())).to_torch(dev)
                        for g, dev in enumerate(self._devices)]
+        self._slots.reset()
 
     # -- hot path --------------------------------------------------------
     @spanned("entry.batch")
@@ -238,17 +238,13 @@ class PendingBatch:
         if not parent.check_exactness:
             return labels
         both = to_host(both_d).numpy()
-        if both[0] and parent._capacity_boost < 2:
+        if parent._slots.rerun(cfg.cand_slots, bool(both[0])):
             # candidate slots exceeded: re-run the batch from its state
-            # before the batch with more slots (the runner's escalation)
-            parent._capacity_boost += 1
+            # before the batch, starting at the re-run's slots
             parent._state = prev_state
             return parent.iterate(images, max_iter)
         Bg = raw[0].shape[0]
         for f in np.nonzero(both[1:])[0].tolist():
-            with span("runner.tie_escalation"):
-                r = raw[f // Bg][f % Bg]
-                fixed = selection_rerun_device(r, cfg.K, int(scalars.thres))
-                fixed = torch.where(fixed == UNASSIGNED, -1, fixed)
-                labels[f] = fixed.to(labels.device)
+            labels[f] = tie_labels(raw[f // Bg][f % Bg], cfg.K,
+                                   int(scalars.thres)).to(labels.device)
         return labels

@@ -7,7 +7,10 @@ runs the explicit shard step of :mod:`.spatial_shardmap` and keeps this
 class's own escalations (fast_slic_tpu/parallel/spatial.py:82-117):
 
 * a candidate overflow re-runs the image on the first shard's device
-  through ``runner.run_iterate`` (more slots) from the state before it;
+  through ``runner.run_iterate`` from the state before it, starting at the
+  slots this object carries (``runner.CarriedSlots.hand_off``: a re-run;
+  the next call's shards start no lower than their own re-run would, or at
+  the slots of the run the runner keeps, if more);
 * a CCA top-K tie takes the exact CCA on the raw assignment, and the new
   cluster state is kept.
 """
@@ -33,14 +36,14 @@ class ShardedSlic(ShardedSlicExplicit):
                                                               max_iter)
         self.last_tie = tie
         if ovf:
-            # candidate capacity exceeded: the single-frame runner's
-            # escalation (runner.py:48-56)
+            self._slots.hand_off(cfg.cand_slots)
             res = run_iterate(cfg, image, start.as_numpy(), RuntimeParams(
                 compactness=self.compactness,
                 min_size_factor=self.min_size_factor,
                 subsample_stride=int(self.subsample_stride),
                 max_iter=int(max_iter),
-                preemptive_thres=self.preemptive_thres), self.device)
+                preemptive_thres=self.preemptive_thres), self.device,
+                carry=self._slots)
             self.last_tie = res.cca_tie
             self._state = res.clusters.to_torch(self.device)
             return res.labels

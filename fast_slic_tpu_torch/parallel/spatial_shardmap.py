@@ -36,11 +36,13 @@ component count, so the JAX package's component overflow cannot arise.
 Candidate lists: a shard's first and last cell rows also take the clusters
 within S+1 rows outside its slab, and where the slab ends inside a cell
 the last rows' 3x3 neighbourhoods span 3.5 cell rows; so a shard's lists
-hold twice the image's slots (32 for 16).  A flagged overflow re-runs the
-image from its state on the single-frame runner's schedule (3x the slots,
-48 at most: ``config.more_cand_slots``).  The JAX class takes the exact CCA of the
-truncated assignment instead, which differs from the single device's
-where a dropped candidate would have won a pixel (ROADMAP.md §3).
+hold twice the image's slots (32 for 16; 48 at most).  A flagged overflow
+re-runs the image from its state on the runner's schedule
+(``runner.rerun_slots``), and the next image of the same shape starts at
+the kept run's slots (``runner.CarriedSlots``).  The JAX class takes the
+exact CCA of the truncated assignment instead, which differs from the
+single device's where a dropped candidate would have won a pixel
+(ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -52,14 +54,14 @@ import torch
 
 from .. import cluster as cluster_lib
 from ..cluster import Clusters
-from ..config import (CAND_RERUNS, MAX_CAND_SLOTS, UNASSIGNED, VARIANT_LSC,
-                      StaticConfig, check_arch, more_cand_slots)
+from ..config import UNASSIGNED, VARIANT_LSC, StaticConfig, check_arch
 from .. import pipeline
 from ..kernels.cca import connected_components, lookup, seam_min
 from ..kernels.lab import rgb_to_lab_planar
 from ..kernels.segsum import segment_sum, slic_update, slic_update_masked
 from ..ops import lsc as lsc_ops
 from ..ops.cca import _substitutes, enforce_connectivity_exact
+from ..runner import MAX_CAND_SLOTS, CarriedSlots
 from .mesh import Mesh, make_mesh
 
 __all__ = ["ShardedSlicExplicit"]
@@ -337,6 +339,7 @@ class ShardedSlicExplicit:
         self.preemptive_thres = preemptive_thres
         self.mesh = mesh if mesh is not None else make_mesh(data=1)
         self._state = None        # Clusters on the first shard
+        self._slots = CarriedSlots()
         self.last_tie = False     # the last iterate's CCA tie
         self.last_reruns = 0      # its re-runs after a candidate overflow
         self.last_seam_rounds = []  # rounds of each halo propagation
@@ -359,6 +362,7 @@ class ShardedSlicExplicit:
         self._state = cluster_lib.clusters_from_numpy(
             st.y, st.x, st.r, st.g, st.b, st.num_members, st.is_active,
             st.is_updatable).to_torch(self.device)
+        self._slots.reset()
 
     def _config(self, image):
         H, W, _ = image.shape
@@ -369,7 +373,8 @@ class ShardedSlicExplicit:
         cfg = StaticConfig(H=H, W=W, K=self.num_components,
                            variant=self.variant,
                            convert_to_lab=bool(self.convert_to_lab),
-                           preemptive=bool(self.preemptive))
+                           preemptive=bool(self.preemptive),
+                           cand_slots=self._slots.start(H, W))
         if self.variant == VARIANT_LSC and (cfg.S // 4) >= H // D:
             raise ValueError(
                 "LSC centroid seeding window (S/4 = %d rows) must fit in "
@@ -381,9 +386,10 @@ class ShardedSlicExplicit:
                              % (H, cfg.S))
         return cfg
 
-    def _run(self, image, max_iter, cand_slots=16):
+    def _run(self, image, max_iter):
+        """One shard step at the carried slots."""
         image = np.ascontiguousarray(image, np.uint8)
-        cfg = dataclasses.replace(self._config(image), cand_slots=cand_slots)
+        cfg = self._config(image)
         if self._state is None:
             self._state = cluster_lib.initialize_clusters(
                 image, self.num_components).to_torch(self.device)
@@ -409,14 +415,14 @@ class ShardedSlicExplicit:
         return labels
 
     def iterate(self, image, max_iter=10):
-        slots = 16
-        for rerun in range(CAND_RERUNS + 1):
-            image, cfg, scalars, _, out, tie, ovf = self._run(
-                image, max_iter, slots)
-            if not ovf or rerun == CAND_RERUNS:
+        self.last_reruns = 0
+        while True:
+            image, cfg, scalars, _, out, tie, ovf = self._run(image,
+                                                              max_iter)
+            if not self._slots.rerun(cfg.cand_slots, ovf):
                 break
-            slots = more_cand_slots(slots)   # the runner's escalation
-        self.last_tie, self.last_reruns = tie, rerun
+            self.last_reruns += 1
+        self.last_tie = tie
         # a tie (or lists still full at 48 slots): the exact CCA on the raw
         # assignment, as the JAX class (spatial_shardmap.py:433-441)
         labels = (self._exact_labels(out, cfg, scalars) if tie or ovf

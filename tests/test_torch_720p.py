@@ -22,6 +22,7 @@ import torch
 from chip_smoke import BATCH, H720, K720, W720, make_frames
 from fast_slic_tpu_torch import Slic
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+from torch_threads import one_torch_thread  # noqa: F401
 
 REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                    "port_720p_ref.npz")

@@ -35,6 +35,7 @@ from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch import runner
 from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 4
 # name: (image shape, subsample_stride, max_iter); every shape but
@@ -51,14 +52,6 @@ RECORDER_CASES = SHORT_CASES + [("square", "standard"), ("square", "lsc")]
 FIELDS = ("y", "x", "r", "g", "b", "num_members", "is_active",
           "is_updatable")
 LSC_CLOSE = dict(rtol=1e-5, atol=1e-6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def image_for(shape_name):

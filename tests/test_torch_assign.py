@@ -22,18 +22,9 @@ from fast_slic_tpu_torch.cluster import clusters_from_numpy
 from fast_slic_tpu_torch.config import UNASSIGNED, StaticConfig
 from fast_slic_tpu_torch.kernels.assign import assign
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, K = 64, 96, 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(rng, manhattan=True, cand_slots=16, inactive_patch=False):

@@ -35,18 +35,9 @@ from fast_slic_tpu_torch.cluster import clusters_from_numpy
 from fast_slic_tpu_torch.config import UNASSIGNED, StaticConfig
 from fast_slic_tpu_torch.kernels.assign_float import F32_MAX, assign_float
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, K = 94, 130, 48
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(rng, variant, manhattan=True, cand_slots=16):

@@ -42,20 +42,11 @@ from fast_slic_tpu_torch.ops.cca import (enforce_connectivity_flagged,
 from fast_slic_tpu_torch.parallel import batch as tbatch
 from fast_slic_tpu_torch.parallel import stack as tstack
 from fast_slic_tpu_torch.parallel.mesh import make_mesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, H, W, K = 3, 96, 128, 24
 FIELDS = ("y", "x", "r", "g", "b", "num_members", "is_active",
           "is_updatable")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames(image_factory, n=B):
@@ -352,7 +343,8 @@ def test_batch_modes_route(monkeypatch, image_factory):
 
 def test_candidate_overflow_reruns_the_batch(monkeypatch, image_factory):
     """A flagged overflow re-runs the batch from the state before it with
-    32 slots; the re-run's labels and state replace the first run's."""
+    48 slots (the runner's schedule), which the batch carries; the re-run's
+    labels and state replace the first run's."""
     real = tbatch.iterate_graph_stacked
     slots = []
 
@@ -368,7 +360,7 @@ def test_candidate_overflow_reruns_the_batch(monkeypatch, image_factory):
     monkeypatch.setattr(tbatch, "iterate_graph_stacked", flag_16_slots)
     bs = _batched(batch_mode="stack")
     got = bs.iterate(frames, max_iter=3)
-    assert slots == [16, 32] and bs._capacity_boost == 1
+    assert slots == [16, 48] and bs._slots.start(H, W) == 48
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     for fld in FIELDS:
         np.testing.assert_array_equal(getattr(bs.state, fld),

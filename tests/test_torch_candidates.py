@@ -23,6 +23,7 @@ from fast_slic_tpu.config import StaticConfig as JaxConfig
 from fast_slic_tpu_torch import pipeline as tpipe
 from fast_slic_tpu_torch.config import StaticConfig
 from fast_slic_tpu_torch.kernels import candidates as kc
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _state(rng, B, K, H, W, lo=0.0, hi=None, active=0.85):

@@ -37,16 +37,7 @@ from fast_slic_tpu_torch.kernels.cca import (connected_components, lookup,
 from fast_slic_tpu_torch.ops.cca import (enforce_connectivity_flagged,
                                          heap_select_topk,
                                          selection_rerun_device)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spiral(H=33, W=33):

@@ -16,17 +16,7 @@ from fast_slic_tpu.ops.cielab import rgb_to_lab_quantized_np
 from fast_slic_tpu.pallas.lut_tpu import rgb_to_lab_planar as lab_pallas
 from fast_slic_tpu_torch.kernels import lab as lab_kernel
 from fast_slic_tpu_torch.ops import cielab as port_cielab
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The suite runs several workers beside JAX's threads; torch's own
-    thread pool on top of them oversubscribes the cores (each test slows
-    down many times over), so these tests run torch on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_tables_equal_jax_package():

@@ -29,6 +29,7 @@ from fast_slic_tpu.crf import SimpleCRF as JaxCRF
 from fast_slic_tpu_torch import SimpleCRF, SimpleCRFFrame, SlicModel
 from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch import crf as crf_reexport
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 RTOL, ATOL = 2e-4, 1e-6

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import fast_slic_tpu_torch as ft
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "bench_port")

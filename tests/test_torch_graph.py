@@ -36,6 +36,7 @@ from fast_slic_tpu_torch import NodeConnectivity, SlicModel
 from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch.kernels import knn as knn_kernel
 from fast_slic_tpu_torch.ops import graph
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 K720 = 1600

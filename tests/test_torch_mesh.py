@@ -50,6 +50,8 @@ from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 from fast_slic_tpu_torch.parallel.mesh import Mesh, make_mesh
 from fast_slic_tpu_torch.parallel.spatial import ShardedSlic
 from fast_slic_tpu_torch.parallel.spatial_shardmap import ShardedSlicExplicit
+from fast_slic_tpu_torch.utils.timing import COUNTS
+from torch_threads import one_torch_thread  # noqa: F401
 
 REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                    "port_mesh_ref.npz")
@@ -390,7 +392,8 @@ def test_candidate_overflow_escalation(monkeypatch, image_factory, cls):
     """A shard's overflow flag (forced here below 48 slots) re-runs
     ShardedSlicExplicit from its state with 48 slots; ShardedSlic re-runs
     the image on one device through the runner.  Both give the single
-    device's labels and state."""
+    device's labels and state, and carry the kept run's 48 slots: the next
+    image runs once, its shards at 48."""
     real = ssm.pipeline.build_candidates
     slots = []
 
@@ -409,6 +412,40 @@ def test_candidate_overflow_escalation(monkeypatch, image_factory, cls):
     np.testing.assert_array_equal(got, single.iterate(img, 3))
     np.testing.assert_array_equal(sh.state.y,
                                   single.slic_model.to_yxmrgb()[:, 0])
+    slots.clear()
+    got = sh.iterate(img, 3)
+    assert set(slots) == {48} and sh.last_reruns == 0
+    np.testing.assert_array_equal(got, single.iterate(img, 3))
+    np.testing.assert_array_equal(sh.state.y,
+                                  single.slic_model.to_yxmrgb()[:, 0])
+
+
+def test_handoff_carries_the_shards_rerun(monkeypatch, image_factory):
+    """Lists that overflow in the shards only (32 slots, forced here) hand
+    the image to the runner, whose 16-slot run equals the single device's;
+    the hand-off is one re-run, and the next image's shards start at 48
+    and run once, with no hand-off."""
+    real = ssm.pipeline.build_candidates
+    slots = []
+
+    def shards_full(y, x, act, cfg, key=None, overflow=None):
+        cand, ovf = real(y, x, act, cfg, key, overflow)
+        slots.append(cfg.cand_slots)
+        return cand, ovf | (cfg.cand_slots == 32)
+
+    monkeypatch.setattr(ssm.pipeline, "build_candidates", shards_full)
+    img = image_factory(64, 48)
+    sh = ShardedSlic(num_components=12, mesh=_cpu_mesh(space=4))
+    single = Slic(num_components=12, device="cpu")
+    for t, runs in enumerate(([16, 32], [48])):
+        slots.clear()
+        before = COUNTS["runner.reruns"]
+        got = sh.iterate(img, 3)
+        assert sorted(set(slots)) == runs, t
+        assert COUNTS["runner.reruns"] - before == (t == 0), t
+        np.testing.assert_array_equal(got, single.iterate(img, 3))
+        np.testing.assert_array_equal(sh.state.y,
+                                      single.slic_model.to_yxmrgb()[:, 0])
 
 
 def test_rows_and_lsc_window_raise(image_factory):

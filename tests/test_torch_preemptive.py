@@ -42,21 +42,12 @@ from fast_slic_tpu_torch import pipeline as tpipe
 from fast_slic_tpu_torch.config import UNASSIGNED, StaticConfig
 from fast_slic_tpu_torch.kernels.segsum import (slic_update_masked,
                                                 slic_update_masked_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "golden_ref.npz")
 FIELDS = ("y", "x", "r", "g", "b", "num_members", "is_active",
           "is_updatable")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _to_torch(st):

@@ -20,18 +20,9 @@ from fast_slic_tpu.pallas.segsum_tpu import (framed_segment_sum_pallas,
 from fast_slic_tpu_torch.config import UNASSIGNED
 from fast_slic_tpu_torch.kernels.segsum import (framed_segment_sum,
                                                 segment_sum, slic_update)
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, W, K = 70, 100, 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _assignment(rng):

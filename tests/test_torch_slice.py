@@ -29,6 +29,7 @@ from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch import pipeline as tpipe
 from fast_slic_tpu_torch import runner
 from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data", "golden_ref.npz")
@@ -42,17 +43,6 @@ GOLDEN_CASES = {
     "std_k256_stride1": (256, {}, {"subsample_stride": 1}),
     "std_k256_comp20": (256, {}, {"compactness": 20.0}),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores (the goldens ran ~100x slower
-    in the full suite without this)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("flags,stride", [({}, 3),

@@ -24,6 +24,7 @@ from fast_slic_tpu_torch import kernels
 from fast_slic_tpu_torch.kernels import _lib
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 from fast_slic_tpu_torch.utils import timing
+from torch_threads import one_torch_thread  # noqa: F401
 
 K = 12
 MAX_ITER = 3

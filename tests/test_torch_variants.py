@@ -34,19 +34,10 @@ from fast_slic_tpu_torch import cluster as tcl
 from fast_slic_tpu_torch import pipeline as tpipe
 from fast_slic_tpu_torch import runner
 from fast_slic_tpu_torch.config import RuntimeParams, StaticConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "golden_ref.npz")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread: beside the suite's workers and JAX's threads a
-    full torch pool oversubscribes the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("variant", ["real", "real_l2", "real_noq", "lsc"])
