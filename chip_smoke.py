@@ -24,13 +24,14 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card, at the paths' shapes (1280x720, K=1600, S=24, 16 candidate slots;
    assign, float assign (each variant) and update at stride 3 with each
    remainder and stride 1; CCA on a real raw assignment of the frame (the
-   orphan chase on its selection's tables); the
+   selection and orphan chase, cca_select, on its component tables); the
    LSC features and the f32 segment sum on an LSC state of the frame; on
    four stacked frames after nine preemptive iterations, where some cells
    are inactive: assign, float assign and update with the frame axis (and
    the LSC float assign on the four frames' LSC states stacked), the
-   masked update with that pixel mask at B=4 and B=1, and the components
-   and the per-frame segment sum on the four frames' stacked CCA map; the
+   masked update with that pixel mask at B=4 and B=1, and the components,
+   the per-frame segment sum and the selection (on [4, n] views, a
+   component count a frame) on the four frames' stacked CCA map; the
    f32 segment sum again under frame 0's preemptive mask; the region
    minimum per pixel (propagate_min) and per region (region_table) on
    frame 0's raw assignment with pixel-id, leader-rank and
@@ -41,7 +42,7 @@ Phases (any failure exits non-zero; no phase's error is caught):
    bit-exact (the f32 segment sum against its plain version on the CPU,
    whose order of addition it keeps; on the card index_add_ adds with
    float atomics; the KNN against its host loop), with times, the host
-   time of a lookup, chase, f32 segment-sum and KNN call, each kernel's bound
+   time of a lookup, selection, f32 segment-sum and KNN call, each kernel's bound
    (the bytes it must move over 3.35 TB/s or its operations over 67
    TFLOP/s, the larger) and, where one PyTorch call computes the same
    function, that call's time;
@@ -96,7 +97,8 @@ Phases (any failure exits non-zero; no phase's error is caught):
    card; ms a frame (CUDA events and host clock), launches, tie
    escalations, seam-fixpoint rounds and bytes between shards for each
    sharded frame and its single-device run; and the path's own
-   connected_components, seam_min and lookup calls on one 4K frame (slabs
+   connected_components, seam_min, lookup and cca_select calls (the
+   selection on tables of fewer bins than pixels) on one 4K frame (slabs
    of 540x3840) and one 1080p frame (270x1920), each held bit for bit
    against its plain version on the same inputs, the 4K run giving the
    JSON rows of seam_min (a seam row) and of region_table and
@@ -170,21 +172,21 @@ GOLDEN_CASES = {
 
 # the kernels each path must launch
 STANDARD_PATH = ("lab", "candidates", "assign", "slic_update", "segment_sum",
-                 "connected_components", "lookup", "resolve_orphans")
+                 "connected_components", "lookup", "cca_select")
 FLOAT_PATH = ("lab", "lsc_feat", "candidates", "assign_float", "slic_update",
               "fsegsum", "segment_sum", "connected_components", "lookup",
-              "resolve_orphans")
+              "cca_select")
 PREEMPTIVE_PATH = ("lab", "lsc_feat", "candidates", "assign", "assign_float",
                    "slic_update_masked", "fsegsum", "segment_sum",
-                   "connected_components", "lookup", "resolve_orphans")
+                   "connected_components", "lookup", "cca_select")
 BATCH_PATH = ("lab", "candidates", "assign", "assign_float", "slic_update",
               "slic_update_masked", "framed_segment_sum",
-              "connected_components", "lookup", "resolve_orphans")
+              "connected_components", "lookup", "cca_select")
 # the mesh path: four shards of one card at 4K (the standard variant), and
 # at 1080p each variant and the preemptive grid
 MESH_PATH = ("lab", "candidates", "assign", "slic_update", "seam_min",
              "connected_components", "segment_sum", "lookup",
-             "resolve_orphans")
+             "cca_select")
 MESH_VARIANT_PATH = ("assign_float", "lsc_feat", "fsegsum",
                      "slic_update_masked", "seam_min")
 # the CRF path: the standard path's kernels, then the graph utilities
@@ -193,10 +195,10 @@ CRF_PATH = STANDARD_PATH + ("knn", "knn_buckets")
 # preemptive grid, and the standalone enforce_connectivity
 API_PATH = ("lab", "candidates", "assign", "assign_float", "slic_update",
             "slic_update_masked", "segment_sum", "connected_components",
-            "lookup", "resolve_orphans", "lsc_feat", "fsegsum")
+            "lookup", "cca_select", "lsc_feat", "fsegsum")
 # device kernels of the redesigned calls and the once-a-frame kernels,
 # printed in every profile
-PROFILE_ALWAYS = ("lookup_kernel", "resolve_orphans_kernel", "fs_rank",
+PROFILE_ALWAYS = ("lookup_kernel", "cca_select_kernel", "fs_rank",
                   "fs_scan", "fs_scatter", "fs_sum", "slic_update_kernel",
                   "lab_kernel", "lsc_feat_kernel", "assign_kernel",
                   "cc_local", "cc_seams", "cc_flatten", "assign_float_kernel",
@@ -513,7 +515,7 @@ def kernel_phase(dev, frame, K: int, res: Results):
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
     from fast_slic_tpu_torch.kernels import assign, cca, lab, segsum
     from fast_slic_tpu_torch.ops.cca import (cca_parts, leader_ranks,
-                                             orphan_tables, segsum_values)
+                                             segsum_values)
     from fast_slic_tpu_torch.ops.cielab import lab_tables
 
     H, W = frame.shape[:2]
@@ -593,20 +595,24 @@ def kernel_phase(dev, frame, K: int, res: Results):
     res.time("lookup", lambda: cca.lookup(L, rank),
              lambda: cca.lookup_plain(L, rank), 8 * n + nbytes(rank), n,
              library_fn=lambda: rank[L_long])
-    # the orphan chase on the tables of this frame's selection
+    # the selection and orphan chase on this frame's component tables
     _, areas, target, _ = cca_parts(raw)
-    sub, ptrs, _ = orphan_tables(areas, target, ncomp, K, int(scal.thres))
-    res.check("resolve_orphans",
-              max_abs_err(cca.resolve_orphans(sub, ptrs),
-                          cca.resolve_orphans_plain(sub, ptrs)))
-    res.time("resolve_orphans", lambda: cca.resolve_orphans(sub, ptrs),
-             lambda: cca.resolve_orphans_plain(sub, ptrs), 12 * n, n)
+    thres = int(scal.thres)
+    got = cca.cca_select(areas, target, ncomp, K, thres)
+    want = cca.cca_select_plain(areas, target, ncomp, K, thres)
+    res.check("cca_select", max(max_abs_err(got[0], want[0]),
+                                max_abs_err(got[1], want[1])))
+    nc = int(ncomp)
+    res.time("cca_select", lambda: cca.cca_select(areas, target, ncomp, K,
+                                                  thres),
+             lambda: cca.cca_select_plain(areas, target, ncomp, K, thres),
+             8 * nc + 4 * n, nc)
     log("kernel phase: %d of %d components dropped (orphans)"
-        % (int((sub == UNASSIGNED).sum()), int(ncomp)))
-    log("host: lookup %.2f us a call, resolve_orphans %.2f us a call "
+        % (nc - min(K, int((areas[:nc] >= thres).sum())), nc))
+    log("host: lookup %.2f us a call, cca_select %.2f us a call "
         "(host clock over 1000 calls)"
         % (host_us(lambda: cca.lookup(L, rank)),
-           host_us(lambda: cca.resolve_orphans(sub, ptrs))))
+           host_us(lambda: cca.cca_select(areas, target, ncomp, K, thres))))
     comp2 = cca.lookup_plain(L, rank).reshape(H, W)
     vals = segsum_values(comp2, is_leader).contiguous()
     ids = comp2.reshape(-1)
@@ -767,15 +773,17 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
     assign (real, real_l2, real_noq; lsc on the frames' own mid-loop LSC
     states, stacked) and update over the B frames, the
     masked update at B=4 and B=1, each at stride 3 with each remainder and
-    at stride 1, the components on the frames' stacked CCA map and the
-    per-frame segment sum on their CCA values; and the f32 segment sum
+    at stride 1, the components on the frames' stacked CCA map, the
+    per-frame segment sum on their CCA values and the selection on its
+    [B, n] tables; and the f32 segment sum
     ``fseg`` (ids, mask, vals of the LSC state) again with frame 0's
     preemptive mask."""
     import torch
     from fast_slic_tpu_torch import cluster as cl, pipeline
     from fast_slic_tpu_torch.config import StaticConfig, UNASSIGNED
     from fast_slic_tpu_torch.kernels import assign, assign_float, cca, segsum
-    from fast_slic_tpu_torch.ops.cca import (framed_components, framed_labels,
+    from fast_slic_tpu_torch.ops.cca import (framed_cca_parts,
+                                             framed_components, framed_labels,
                                              segsum_values)
 
     B = len(frames)
@@ -965,6 +973,18 @@ def frame_kernel_phase(dev, frames, K: int, res: Results, fseg):
              library_fn=lambda: torch.zeros(
                  (2, B * n), dtype=torch.int32, device=dev).index_add_(
                      1, gid, vals2))
+    # the selection on the four frames' tables as the stacked path gives
+    # them: [B, n] views with a frame stride of two tables, a component
+    # count a frame read on the device
+    _, areas, target, ncomp = framed_cca_parts(raw, K)
+    thres = int(scal.thres)
+    got = cca.cca_select(areas, target, ncomp, K, thres)
+    want = cca.cca_select_plain(areas, target, ncomp, K, thres)
+    res.check("cca_select", max(max_abs_err(got[0], want[0]),
+                                max_abs_err(got[1], want[1])))
+    log("frame kernel phase: cca_select B=%d on [%d, %d] views of frame "
+        "stride %d, components %s, tie flags %s"
+        % (B, B, n, areas.stride(0), ncomp.tolist(), got[1].tolist()))
 
 
 def slice_phase(dev, frames, K: int):
@@ -1655,10 +1675,11 @@ def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
                  time_rows: bool):
     """The sharded CCA's kernels at the mesh path's own shapes and inputs:
     one frame through a fresh ShardedSlicExplicit with the shard step's
-    connected_components, seam_min and lookup wrapped to hold each call
-    against its plain version on the same inputs, bit for bit (the
-    components, every seam, with its changed flag, every gather of seam
-    values, final gather and relabel), and its halo propagations to count
+    connected_components, seam_min, lookup and selection wrapped to hold
+    each call against its plain version on the same inputs, bit for bit
+    (the components, every seam, with its changed flag, every gather of
+    seam values, final gather and relabel, the substitute table and tie
+    flag of each run), and its halo propagations to count
     their rounds (spatial_shardmap looks these names up at call time).
     Each round makes one two-row gather a shard and one seam_min a seam
     side; each propagation one gather of a whole slab a shard, and the
@@ -1672,7 +1693,7 @@ def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
 
     D = mesh.shape["space"]
     Hl, W = frame.shape[0] // D, frame.shape[1]
-    comps, seams, gathers, rounds, inputs = [], [], [], [], {}
+    comps, seams, gathers, rounds, selects, inputs = [], [], [], [], [], {}
 
     def components(labels):
         out = cca.connected_components(labels)
@@ -1700,6 +1721,14 @@ def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
         gathers.append(ids.numel())
         return out
 
+    def substitutes(areas, target, ncomp, K, thres, n_pixels=None):
+        got = cca.cca_select(areas, target, ncomp, K, thres, n_pixels)
+        want = cca.cca_select_plain(areas, target, ncomp, K, thres, n_pixels)
+        res.check("cca_select", max(max_abs_err(got[0], want[0]),
+                                    max_abs_err(got[1], want[1])))
+        selects.append((areas.numel(), n_pixels))
+        return got
+
     def halo_propagate(mesh, labs, tables, roots, n_rounds):
         if time_rows and len(rounds) == 1:
             inputs["slab"] = (tables[1].clone().reshape(Hl, W), roots[1],
@@ -1710,9 +1739,11 @@ def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
 
     real_propagate = ssm._halo_propagate
     sharded = ssm.ShardedSlicExplicit(num_components=K, mesh=mesh)
-    names = ("connected_components", "seam_min", "lookup", "_halo_propagate")
+    names = ("connected_components", "seam_min", "lookup", "_halo_propagate",
+             "_substitutes")
     saved = [getattr(ssm, k) for k in names]
-    for k, fn in zip(names, (components, seam_min, lookup, halo_propagate)):
+    for k, fn in zip(names, (components, seam_min, lookup, halo_propagate,
+                             substitutes)):
         setattr(ssm, k, fn)
     try:
         sharded.iterate(frame)
@@ -1729,15 +1760,19 @@ def cca_on_slabs(mesh, frame, K: int, res: Results, tag: str,
             and all(w == W for _, w in seams)
             and gathers.count(2 * W) == D * sum(rounds)
             and gathers.count(slab) == 3 * D * runs
-            and len(gathers) == D * sum(rounds) + 3 * D * runs,
-            "mesh %s: %d components, %d seam_min and %d lookup calls in %d "
-            "runs for seam rounds %s" % (tag, len(comps), len(seams),
-                                        len(gathers), runs, rounds))
-    log("mesh %s: the path's %d connected_components, %d seam_min and %d "
-        "lookup calls (%d of a whole %dx%d slab) in %d runs, seam rounds "
-        "%s, equal their plain versions"
+            and len(gathers) == D * sum(rounds) + 3 * D * runs
+            and len(selects) == runs
+            and all(p == D * slab and b < p for b, p in selects),
+            "mesh %s: %d components, %d seam_min, %d lookup and %d "
+            "selection calls (bins, pixels %s) in %d runs for seam rounds %s"
+            % (tag, len(comps), len(seams), len(gathers), len(selects),
+               selects, runs, rounds))
+    log("mesh %s: the path's %d connected_components, %d seam_min, %d "
+        "lookup calls (%d of a whole %dx%d slab) and %d cca_select calls "
+        "(bins, pixels %s) in %d runs, seam rounds %s, equal their plain "
+        "versions"
         % (tag, len(comps), len(seams), len(gathers), gathers.count(slab),
-           W, Hl, runs, rounds))
+           W, Hl, len(selects), selects, runs, rounds))
     if not time_rows:
         return
     (m0, roots, _), (table, args, changed, stamp) = (inputs["slab"],

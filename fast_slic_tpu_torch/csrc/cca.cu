@@ -56,15 +56,48 @@
 // (pallas_call in banded_lookup_pallas), which emulated a gather with banded
 // one-hot matmuls: out[i] = table[ids[i]] is a plain gather here.
 //
-// fstt_resolve_orphans replaces the orphan chase that called that kernel in
-// a loop (fast_slic_tpu/ops/cca.py:_resolve_orphans; on the CPU pointer
-// doubling, one pair of gathers and one host check a round).  Each entry
-// walks its own chain over the READ-ONLY tables -- j = target[j] while
-// substitute[j] is UNASSIGNED -- and writes the substitute it ends on, or 0
-// where the chain never reaches an assigned entry: the fixpoint the doubling
-// reaches, in one launch, whatever order the threads run in.  The walk stops
-// after n hops or at a target outside the table, so a malformed table
-// cannot hang the card.
+// fstt_cca_select replaces no TPU kernel: the selection and orphan adoption
+// that the JAX package writes as XLA ops (fast_slic_tpu/ops/cca.py:308-398,
+// enforce_connectivity_xla_flagged after _cca_core; its plain version,
+// kernels/cca.py:cca_select_plain, is about 213 torch launches a call on
+// the card).  From one frame's
+// component tables (areas, adoption targets, the component count nc, all on
+// the device) it writes the substitute table -- each kept component's rank
+// in leader order, each dropped one its adopter's -- and the boundary-tie
+// flag, one block a frame (cca_select_kernel):
+//   a. the k-th largest area among the components over the area threshold,
+//      by a radix select: one pass counts them and takes their largest
+//      area; then a 4096-bin histogram of a 12-bit digit in shared memory
+//      (a warp's lanes with one digit add once), a block scan from the top
+//      bin to the digit where the count crosses k, and again on the next
+//      digit of the areas that share the chosen ones, from the top of the
+//      largest area's bits (one pass below 4096 pixels, as a 720p
+//      superpixel is; two up to 2^24).  The TPU found the same value T --
+//      the least T with fewer than k areas above it -- by a binary search
+//      of ceil(log2(n + 1)) masked sums over the whole table, since top_k
+//      lowers to a serial sort there;
+//   b. one pass over [0, nc) counts the areas above T and equal to it:
+//      fill = k - count(> T) and the tie flag (count(>= thr) > k and fill
+//      < count(== T)), the definition of ops/cca.py;
+//   c. one ordered pass over [0, nc), 4096 entries a round (4 consecutive
+//      a thread, block scans of warp shuffles): a running rank among the
+//      components equal to T (the first fill of them are kept, in leader
+//      order) and among the kept ones (a kept component's substitute);
+//      component 0 gets 0 whether kept or not (cca.cpp:238);
+//   d. the orphan chase, 4096 entries a round in leader order: every entry
+//      of an earlier round is final, so a dropped component whose target
+//      lies below its round takes that entry's label at once (real chains
+//      are 1-3 hops); one whose target lies in its round follows it by
+//      pointer jumping in shared memory, at most 13 steps with a barrier
+//      each, which ends any chain inside the round.  The tables the CCA
+//      makes -- each target below its own entry, each area at most
+//      n_pixels -- are the ones the kernel equals the plain version on;
+//      a target at or past its own entry, or below 0, gives 0, and the
+//      jumping stops after its 13 steps whatever the table, so a
+//      malformed table cannot hang the card.
+// The bins from nc to n are the plain version's 0, written by the grid's
+// further blocks while the frames' blocks select.  Nothing waits on the
+// host: nc is read on the device, the grid is sized by n.
 //
 // Bound on the card: the components need 8 bytes a pixel (a label read, an
 // id written; 7.4 MB at 720p, 2.2 us at 3.35 TB/s), but a union-find is
@@ -101,9 +134,14 @@
 // vectors (a scalar path for unaligned views and the tail), the table is
 // read through the read-only cache, and a grid of a few blocks per SM
 // strides over the ids.  The table has n entries (3.7 MB at 720p), which L2
-// holds, so staging it in shared memory would not help.  The orphan walk is
-// bound by its dependent loads (real chains are 1-3 hops); its tables stay
-// in L2.
+// holds, so staging it in shared memory would not help. 
+//
+// The selection is bound by its launch: at 720p a frame has a few thousand
+// components (~30 KB of tables, a few passes from L2 in one block), and its
+// serial steps are block barriers, a few dozen at that size.  The fill is
+// bound by device memory (4 bytes a bin written).  One block a frame keeps
+// the ordered ranks in one place; at nc = n (every pixel a component) its
+// passes take one SM's bandwidth and a few thousand barriers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -322,19 +360,316 @@ __global__ void lookup_kernel(const int32_t* __restrict__ ids,
         out[p] = gather(table, __ldg(ids + p), table_size);
 }
 
-__global__ void resolve_orphans_kernel(const int32_t* __restrict__ substitute,
-                                       const int32_t* __restrict__ target,
-                                       int32_t* __restrict__ out, int n) {
-    int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    int j = i;
-    int32_t s = substitute[j];
-    for (int hops = 0; s == UNASSIGNED && hops < n; ++hops) {
-        j = target[j];
-        if ((unsigned)j >= (unsigned)n) break;
-        s = substitute[j];
+constexpr int kSelThreads = 1024;                // a frame's block
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelItems = 4;                     // entries a thread a round
+constexpr int kRound = kSelThreads * kSelItems;  // entries a round
+constexpr int kRoundLog = 12;                    // log2(kRound)
+constexpr int kDigitBits = 12;                   // radix digit
+constexpr int kDigits = 1 << kDigitBits;         // histogram bins
+constexpr int kBinsPerThread = kDigits / kSelThreads;
+static_assert(kSelWarps == 32, "the warp totals are reduced by one warp");
+static_assert(1 << kRoundLog == kRound, "kRoundLog");
+static_assert(kDigits <= 2 * kRound, "the histogram shares the chase's");
+
+// inclusive sum of v over the block (in thread order); *total gets the sum
+// of all.  Every thread of the block calls it; scratch: kSelWarps ints
+__device__ __forceinline__ int block_scan(int v, int* scratch, int* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xFFFFFFFFu, v, d);
+        if (lane >= d) v += u;
     }
-    out[i] = s == UNASSIGNED ? 0 : s;
+    if (lane == 31) scratch[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        int w = scratch[lane];
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int u = __shfl_up_sync(0xFFFFFFFFu, w, d);
+            if (lane >= d) w += u;
+        }
+        scratch[lane] = w;
+    }
+    __syncthreads();
+    const int before = warp > 0 ? scratch[warp - 1] : 0;
+    *total = scratch[kSelWarps - 1];
+    __syncthreads();  // scratch is free for the next call
+    return v + before;
+}
+
+// the largest v over the block; the same calling rules
+__device__ __forceinline__ unsigned block_max(unsigned v, int* scratch) {
+    v = __reduce_max_sync(0xFFFFFFFFu, v);
+    if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = (int)v;
+    __syncthreads();
+    v = 0;
+#pragma unroll 8
+    for (int w = 0; w < kSelWarps; ++w) v = max(v, (unsigned)scratch[w]);
+    __syncthreads();
+    return v;
+}
+
+// an area's radix key: clamped to [0, cap], cap = n_pixels + 1, which
+// leaves every comparison with a T in [0, n_pixels] as it is
+__device__ __forceinline__ uint32_t area_key(int a, uint32_t cap) {
+    return a < 0 ? 0u : min((uint32_t)a, cap);
+}
+
+// this thread's entries of the round from r, kSelThreads apart (each load
+// coalesced, all four in flight at once); in[j]: the entry is below nc
+__device__ __forceinline__ void load_round(const int32_t* __restrict__ src,
+                                           int r, int nc,
+                                           int (&v)[kSelItems],
+                                           bool (&in)[kSelItems]) {
+#pragma unroll
+    for (int j = 0; j < kSelItems; ++j) {
+        const int i = r + j * kSelThreads + threadIdx.x;
+        in[j] = i < nc;
+        v[j] = in[j] ? src[i] : 0;
+    }
+}
+
+// Blocks [0, B): frame blockIdx.x's selection (see the note at the top).
+// Blocks from B on: the zero fill of every frame's bins [nc, n).
+// areas, target: frame f at f * frame_stride; sub: int32 [B, n]; tie: one
+// byte a frame; k = min(K, n_pixels).
+__global__ void __launch_bounds__(kSelThreads)
+cca_select_kernel(const int32_t* __restrict__ areas,
+                  const int32_t* __restrict__ target, long long frame_stride,
+                  const int64_t* __restrict__ num_components, int32_t* sub,
+                  uint8_t* __restrict__ tie, int B, int n, int k, int thr,
+                  int n_pixels) {
+    if ((int)blockIdx.x >= B) {
+        const int stride = (gridDim.x - B) * kSelThreads;
+        const int t = (blockIdx.x - B) * kSelThreads + threadIdx.x;
+        for (int f = 0; f < B; ++f) {
+            const long long c = num_components[f];
+            const int nc = c < 0 ? 0 : c > n ? n : (int)c;
+            int32_t* out = sub + (long long)f * n;
+            for (int i = nc + t; i < n; i += stride) out[i] = 0;
+        }
+        return;
+    }
+    // the histogram of a., then the chase's values and pointers of d.
+    __shared__ int buf[2 * kRound];
+    __shared__ int scratch[kSelWarps];
+    __shared__ int s_digit, s_above;
+    int* const hist = buf;
+    int* const s_val = buf;
+    int* const s_ptr = buf + kRound;
+    const int t = threadIdx.x, lane = t & 31;
+    const int f = blockIdx.x;
+    areas += f * frame_stride;
+    target += f * frame_stride;
+    sub += (long long)f * n;
+    const long long c = num_components[f];
+    const int nc = c < 0 ? 0 : c > n ? n : (int)c;
+    const uint32_t cap = (uint32_t)n_pixels + 1u;
+    int a[kSelItems];
+    bool in[kSelItems];
+
+    // a. the areas over the threshold: their count and largest key
+    int count_pre = 0;
+    unsigned kmax = 0;
+    {
+        int cnt = 0;
+        for (int r = 0; r < nc; r += kRound) {
+            load_round(areas, r, nc, a, in);
+#pragma unroll
+            for (int j = 0; j < kSelItems; ++j) {
+                if (in[j] && a[j] >= thr) {
+                    ++cnt;
+                    kmax = max(kmax, area_key(a[j], cap));
+                }
+            }
+        }
+        block_scan(cnt, scratch, &count_pre);
+        kmax = block_max(kmax, scratch);
+    }
+    // the k-th largest key, a digit a pass from the top of kmax's bits
+    const bool selected = k > 0 && count_pre >= k;
+    uint32_t prefix = 0;  // the digits chosen so far
+    if (selected) {
+        int krem = k;     // rank sought among the keys under that prefix
+        const int bits = 32 - __clz((int)kmax);
+        const int passes = bits > 0 ? (bits + kDigitBits - 1) / kDigitBits
+                                    : 1;
+        for (int p = 0; p < passes; ++p) {
+            const int shift = (passes - 1 - p) * kDigitBits;
+            for (int d = t; d < kDigits; d += kSelThreads) hist[d] = 0;
+            __syncthreads();
+            for (int r = 0; r < nc; r += kRound) {
+                load_round(areas, r, nc, a, in);
+#pragma unroll
+                for (int j = 0; j < kSelItems; ++j) {
+                    // a warp's lanes with one digit add once
+                    const uint32_t u = area_key(a[j], cap);
+                    const bool want =
+                        in[j] && a[j] >= thr &&
+                        ((uint64_t)u >> (shift + kDigitBits)) == prefix;
+                    const int digit = (u >> shift) & (kDigits - 1);
+                    const unsigned same = __match_any_sync(
+                        0xFFFFFFFFu, want ? digit : kDigits + lane);
+                    if (want && lane == __ffs(same) - 1)
+                        atomicAdd(hist + digit, __popc(same));
+                }
+            }
+            __syncthreads();
+            // thread t holds bins kDigits-1-4t down to kDigits-4-4t
+            int own[kBinsPerThread], sum = 0;
+#pragma unroll
+            for (int j = 0; j < kBinsPerThread; ++j) {
+                own[j] = hist[kDigits - 1 - (t * kBinsPerThread + j)];
+                sum += own[j];
+            }
+            int total;
+            const int incl = block_scan(sum, scratch, &total);
+            int above = incl - sum;  // keys in the bins above this thread's
+            if (above < krem && krem <= incl) {  // one thread: the crossing
+#pragma unroll
+                for (int j = 0; j < kBinsPerThread; ++j) {
+                    if (above + own[j] >= krem) {
+                        s_digit = kDigits - 1 - (t * kBinsPerThread + j);
+                        s_above = above;
+                        break;
+                    }
+                    above += own[j];
+                }
+            }
+            __syncthreads();
+            prefix = (prefix << kDigitBits) | (uint32_t)s_digit;
+            krem -= s_above;
+            __syncthreads();  // s_digit, s_above and hist are rewritten next
+        }
+    }
+    // T: the least T in [0, n_pixels] with fewer than k areas above it; 0
+    // where fewer than k pass the threshold, and past every area where
+    // k = 0 (nothing kept)
+    const int T = selected ? (int)prefix : k > 0 ? 0 : (int)cap;
+
+    // b. areas above T and equal to it; fill and the tie flag
+    int n_gt, n_eq;
+    {
+        int gt = 0, eq = 0;
+        for (int r = 0; r < nc; r += kRound) {
+            load_round(areas, r, nc, a, in);
+#pragma unroll
+            for (int j = 0; j < kSelItems; ++j) {
+                if (in[j] && a[j] >= thr) {
+                    gt += a[j] > T;
+                    eq += a[j] == T;
+                }
+            }
+        }
+        block_scan(gt, scratch, &n_gt);
+        block_scan(eq, scratch, &n_eq);
+    }
+    const int fill = k - n_gt;
+    if (t == 0) tie[f] = count_pre > k && fill < n_eq;
+
+    // c. keep and renumber in leader order: a round's entries 4 a thread,
+    // consecutive, so a block scan over the threads follows leader order
+    int eq_base = 0, kept_base = 0;
+    for (int base = 0; base < nc; base += kRound) {
+        const int i0 = base + t * kSelItems;
+        bool gt_t[kSelItems], eq_t[kSelItems];
+        int my_eq = 0;
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            const int v = i0 + j < nc ? areas[i0 + j] : 0;
+            const bool pre = i0 + j < nc && v >= thr;
+            gt_t[j] = pre && v > T;
+            eq_t[j] = pre && v == T;
+            my_eq += eq_t[j];
+        }
+        int tot_eq;
+        int r_eq = eq_base + block_scan(my_eq, scratch, &tot_eq) - my_eq;
+        bool kept[kSelItems];
+        int my_kept = 0;
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            r_eq += eq_t[j];  // inclusive rank among the equal
+            kept[j] = gt_t[j] || (eq_t[j] && r_eq <= fill);
+            my_kept += kept[j];
+        }
+        int tot_kept;
+        int r_kept =
+            kept_base + block_scan(my_kept, scratch, &tot_kept) - my_kept;
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            const int i = i0 + j;
+            if (i < nc)
+                sub[i] = kept[j] ? r_kept++ : i == 0 ? 0 : UNASSIGNED;
+        }
+        eq_base += tot_eq;
+        kept_base += tot_kept;
+    }
+    __syncthreads();  // the block's writes are visible to the whole block
+
+    // d. orphan adoption, a round of kRound entries at a time in leader
+    // order; every entry of an earlier round is final.  v[j]: entry
+    // base + e[j]'s label, UNASSIGNED while it waits on the round's entry
+    // q[j]
+    for (int base = 0; base < nc; base += kRound) {
+        int v[kSelItems], q[kSelItems], e[kSelItems];
+        bool orphan[kSelItems];
+        load_round(sub, base, nc, v, in);
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            e[j] = j * kSelThreads + t;
+            orphan[j] = in[j] && v[j] == UNASSIGNED;
+            q[j] = orphan[j] ? target[base + e[j]] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            const int i = base + e[j], jt = q[j];
+            q[j] = -1;
+            if (!orphan[j]) continue;
+            if ((unsigned)jt >= (unsigned)i) {
+                v[j] = 0;  // itself, a later entry or below 0: no CCA's table
+            } else if (jt < base) {
+                v[j] = sub[jt];
+            } else {
+                q[j] = jt - base;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j) {
+            s_val[e[j]] = v[j];
+            s_ptr[e[j]] = q[j];
+        }
+        __syncthreads();
+        // pointer jumping: after step r an entry's pointer is 2^r hops on,
+        // so a chain inside the round (< kRound hops, each to a lower
+        // entry) ends by step kRoundLog
+        for (int step = 0; step <= kRoundLog; ++step) {
+            bool waits = false;
+#pragma unroll
+            for (int j = 0; j < kSelItems; ++j) {
+                if (v[j] == UNASSIGNED && q[j] >= 0) {
+                    waits = true;
+                    const int qv = s_val[q[j]];
+                    if (qv != UNASSIGNED)
+                        v[j] = qv;
+                    else
+                        q[j] = s_ptr[q[j]];
+                }
+            }
+            if (!__syncthreads_or(waits)) break;
+#pragma unroll
+            for (int j = 0; j < kSelItems; ++j) {
+                s_val[e[j]] = v[j];
+                s_ptr[e[j]] = q[j];
+            }
+            __syncthreads();
+        }
+#pragma unroll
+        for (int j = 0; j < kSelItems; ++j)
+            if (orphan[j]) sub[base + e[j]] = v[j];
+        __syncthreads();  // the round's entries are final in sub; buf free
+    }
 }
 
 constexpr int32_t kBig = 0x7FFFFFFF;
@@ -524,15 +859,24 @@ extern "C" int fstt_lookup(const void* ids, const void* table, void* out,
     return (int)cudaGetLastError();
 }
 
-// substitute, target: int32 [n]; out: int32 [n], every entry written
-extern "C" int fstt_resolve_orphans(const void* substitute, const void* target,
-                                    void* out, int n, void* stream) {
-    if (n > 0) {
-        int threads = 256;
-        int blocks = (n + threads - 1) / threads;
-        resolve_orphans_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-            (const int32_t*)substitute, (const int32_t*)target, (int32_t*)out,
-            n);
+// areas, target: int32, frame f's n bins from f * frame_stride (unit
+// stride); num_components: int64 [B] on the device; substitute: int32
+// [B, n], every entry written; tie: B bytes; k = min(K, n_pixels)
+extern "C" int fstt_cca_select(const void* areas, const void* target,
+                               long long frame_stride,
+                               const void* num_components, void* substitute,
+                               void* tie, int B, int n, int k,
+                               int min_threshold, int n_pixels,
+                               void* stream) {
+    if (B > 0) {
+        const int per_block = kSelThreads * 8;
+        long long fill = ((long long)n * B + per_block - 1) / per_block;
+        if (fill > 2 * sm_count()) fill = 2 * sm_count();
+        cca_select_kernel<<<B + (int)fill, kSelThreads, 0,
+                            (cudaStream_t)stream>>>(
+            (const int32_t*)areas, (const int32_t*)target, frame_stride,
+            (const int64_t*)num_components, (int32_t*)substitute,
+            (uint8_t*)tie, B, n, k, min_threshold, n_pixels);
     }
     return (int)cudaGetLastError();
 }

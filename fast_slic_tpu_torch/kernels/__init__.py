@@ -46,11 +46,12 @@ KERNELS = (
     Kernel("lookup", "fstt_lookup", _cca.lookup, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
            "fast_slic_tpu/pallas/segsum_tpu.py:300"),
-    # the chase that called the lookup in a loop, in one launch
-    Kernel("resolve_orphans", "fstt_resolve_orphans",
-           _cca.resolve_orphans, "cuda",
+    # not a TPU kernel: the JAX package selects, renumbers and adopts the
+    # orphans with XLA ops (a binary search for the K-th largest area, and
+    # the chase that calls the lookup in a loop)
+    Kernel("cca_select", "fstt_cca_select", _cca.cca_select, "cuda",
            "fast_slic_tpu_torch/csrc/cca.cu",
-           "fast_slic_tpu/pallas/segsum_tpu.py:300"),
+           "fast_slic_tpu/ops/cca.py:308-398 (XLA ops)"),
     Kernel("lsc_feat", "fstt_lsc_feat", _lsc_feat.lsc_color_feats, "cuda",
            "fast_slic_tpu_torch/csrc/lsc_feat.cu",
            "fast_slic_tpu/pallas/lut_tpu.py:321"),

@@ -53,7 +53,7 @@ _SIGNATURES = {
     "fstt_seam_min": [P, P, P, P, P, P, I, I, I, P],
     "fstt_propagate_min": [P, P, P, P, I, P],
     "fstt_lookup": [P, P, P, I, I, P],
-    "fstt_resolve_orphans": [P, P, P, I, P],
+    "fstt_cca_select": [P, P, LL, P, P, P, I, I, I, I, I, P],
     "fstt_assign_float": [P, P, P, P, P, P, P, F, I, I, I, I, I, I, I, I, I,
                           I, I, I, P],
     "fstt_lsc_feat": [P, P, P, I, P],

@@ -6,14 +6,15 @@ same kernel as ``propagate_min_pallas`` calls it, per pixel
 component's root (``region_table``), and that table lowered across one
 seam row of a sharded image (``seam_min``); the table lookup, which
 replaces ``fast_slic_tpu/pallas/segsum_tpu.py:_lookup_kernel``; and the
-orphan chase, which replaces the loop of those lookups in
-``fast_slic_tpu/ops/cca.py:_resolve_orphans``.
+component selection with its orphan adoption (``cca_select``), which
+replaces the XLA ops of ``fast_slic_tpu/ops/cca.py:308-398`` (the top-K
+binary search, the renumbering and the chase of lookups).
 
 The plain PyTorch versions are the JAX package's non-TPU branches:
 neighbour-min sweeps with pointer jumping
 (``fast_slic_tpu/ops/cca.py:connected_components``), segment minima, a
-gather, and pointer doubling.  A CPU tensor goes to them; a CUDA tensor
-launches the kernel.
+gather, and the selection's binary search, cumsums and pointer doubling.
+A CPU tensor goes to them; a CUDA tensor launches the kernel.
 """
 
 from __future__ import annotations
@@ -25,10 +26,11 @@ import torch
 from ..config import UNASSIGNED
 from . import _lib
 
-__all__ = ["connected_components", "connected_components_plain", "lookup",
-           "lookup_plain", "propagate_min", "propagate_min_plain",
-           "region_table", "region_table_plain", "resolve_orphans",
-           "resolve_orphans_plain", "seam_min", "seam_min_plain"]
+__all__ = ["cca_select", "cca_select_plain", "connected_components",
+           "connected_components_plain", "lookup", "lookup_plain",
+           "orphan_tables", "propagate_min", "propagate_min_plain",
+           "region_table", "region_table_plain", "resolve_orphans_plain",
+           "seam_min", "seam_min_plain"]
 
 _BIG = 0x7FFFFFFF
 
@@ -222,20 +224,139 @@ def resolve_orphans_plain(substitute, target):
     return torch.where(substitute == UNASSIGNED, 0, substitute)
 
 
-def resolve_orphans(substitute, target):
-    """Dispatch the orphan chase by device; see
-    :func:`resolve_orphans_plain`.  On the card one launch walks every
-    entry's chain (at most n hops) and nothing waits on the host."""
-    if substitute.ndim != 1 or target.shape != substitute.shape:
-        raise ValueError("substitute and target must be [n]")
-    if not substitute.is_cuda:
-        if substitute.device.type == "cpu":
-            return resolve_orphans_plain(substitute, target)
-        raise ValueError("unsupported device %s" % substitute.device)
-    dev = substitute.device
-    _lib.check(substitute, "substitute", torch.int32, dev)
-    _lib.check(target, "target", torch.int32, dev)
-    out = torch.empty_like(substitute)
-    _lib.launch("fstt_resolve_orphans", dev, substitute.data_ptr(),
-                target.data_ptr(), out.data_ptr(), substitute.shape[0])
-    return out
+def _cumsum_last(x, dtype):
+    """Inclusive cumsum along the last axis of one frame [n] or B frames
+    [B, n], as one scan over the flattened tensor minus each frame's total
+    before it."""
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=dtype).reshape(x.shape)
+    if x.ndim == 1:
+        return flat
+    return flat - (flat[..., :1] - x[..., :1].to(dtype))
+
+
+def _topk_keep(areas, kept_pre, k: int, n: int):
+    """The top-k-by-area subset of kept_pre along the last axis (one frame
+    [n] or B frames [B, n]), ties at the boundary broken by component
+    order; and the boundary-tie flag per frame.  The k-th largest area T
+    is the least T in [0, n] with fewer than k areas of kept_pre above it,
+    found as the JAX package finds it, by a binary search on the value
+    range (the card's kernel finds the same T by a radix select)."""
+    def cnt_gt(T):
+        return torch.sum(kept_pre & (areas > T[..., None]), -1)
+
+    lead = areas.shape[:-1]
+    lo = torch.zeros(lead, dtype=torch.int64, device=areas.device)
+    hi = torch.full(lead, n, dtype=torch.int64, device=areas.device)
+    for _ in range(max(1, math.ceil(math.log2(max(n + 1, 2))))):
+        mid = (lo + hi) // 2
+        p = cnt_gt(mid) < k
+        lo, hi = torch.where(p, lo, mid + 1), torch.where(p, mid, hi)
+    T = lo
+    fill = k - cnt_gt(T)
+    eq = kept_pre & (areas == T[..., None])
+    eq_rank = _cumsum_last(eq, torch.int64)             # inclusive
+    kept = ((kept_pre & (areas > T[..., None]))
+            | (eq & (eq_rank <= fill[..., None])))
+    count_pre = torch.sum(kept_pre, -1)
+    boundary_tie = (count_pre > k) & (fill < torch.sum(eq, -1))
+    return kept, boundary_tie
+
+
+def orphan_tables(areas, target, num_components, K: int,
+                  min_threshold: int, n_pixels=None):
+    """The selection of cca.cpp:212-238 on the component tables of one
+    frame ([n]) or B frames ([B, n]; frame-local ids): area threshold,
+    top-K by area, renumbering in leader order and the "component 0 always
+    gets a label" rule (cca.cpp:238).  Returns the tables of the orphan
+    chase, flattened over the frames -- substitute int32 [B*n] (UNASSIGNED
+    for a dropped component) and target int32 [B*n] (pointers into the
+    flattened tables) -- and the boundary-tie flag per frame.
+    ``n_pixels`` (default n): the frame's pixel count, the largest area,
+    where the tables hold fewer bins than pixels (the row-sharded CCA
+    sizes them by the component count)."""
+    n = areas.shape[-1]
+    n_pixels = n if n_pixels is None else n_pixels
+    dev = areas.device
+    citoa = torch.arange(n, dtype=torch.int32, device=dev)
+    valid_comp = citoa < num_components[..., None]
+    kept_pre = valid_comp & (areas >= min_threshold)
+    kept, boundary_tie = _topk_keep(areas, kept_pre, min(K, n_pixels),
+                                    n_pixels)
+
+    substitute = torch.where(
+        kept, _cumsum_last(kept, torch.int32) - 1,
+        UNASSIGNED).to(torch.int32)
+    substitute[..., 0] = torch.where(kept[..., 0], substitute[..., 0], 0)
+    # empty bins beyond num_components are parked at 0 (never read)
+    substitute = torch.where(valid_comp, substitute, 0).to(torch.int32)
+
+    # targets strictly decrease in leader order and component 0 is always
+    # labelled, so every chain ends inside its frame; empty bins point at
+    # themselves.  Pointers index the flattened tables (frame f from f*n).
+    target = torch.where(citoa == 0, 0, target)
+    target = torch.where(valid_comp, target, citoa)
+    base = torch.arange(areas.numel() // max(n, 1), dtype=torch.int32,
+                        device=dev).reshape(areas.shape[:-1] + (1,)) * n
+    return (substitute.reshape(-1),
+            (target + base).reshape(-1).to(torch.int32), boundary_tie)
+
+
+def cca_select_plain(areas, target, num_components, K: int,
+                     min_threshold: int, n_pixels=None):
+    """The selection (:func:`orphan_tables`) and the orphan adoption
+    (cca.cpp:240-254, :func:`resolve_orphans_plain`) of one frame's
+    component tables ([n]) or B frames' ([B, n]): int32 areas and adoption
+    targets (frame-local ids, each below its own entry), num_components
+    int64 (0-d or [B]).  Returns (substitute int32 of the tables' shape:
+    each component's final label, 0 in the bins from num_components on;
+    the boundary-tie flag, bool, one a frame)."""
+    substitute, pointers, boundary_tie = orphan_tables(
+        areas, target, num_components, K, min_threshold, n_pixels)
+    return (resolve_orphans_plain(substitute, pointers).reshape(areas.shape),
+            boundary_tie)
+
+
+def cca_select(areas, target, num_components, K: int, min_threshold: int,
+               n_pixels=None):
+    """Dispatch the selection and orphan adoption by device; see
+    :func:`cca_select_plain`.  On the card one launch, a block a frame
+    (grid sized by the frames and the bins, the component counts read on
+    the device), and nothing waits on the host.  ``areas`` and ``target``
+    may be views with a frame stride (the per-frame segment sum's planes);
+    the bins of a frame must be consecutive.  The kernel equals the plain
+    version on the tables the CCA makes -- each target below its own
+    entry, each area at most ``n_pixels``, K of at least 1; a target at or
+    past its own entry gives 0 there."""
+    if areas.ndim not in (1, 2) or target.shape != areas.shape:
+        raise ValueError("areas and target must be [n] or [B, n], alike")
+    if num_components.shape != areas.shape[:-1]:
+        raise ValueError("num_components must have shape %s"
+                         % (tuple(areas.shape[:-1]),))
+    if not areas.is_cuda:
+        if areas.device.type == "cpu":
+            return cca_select_plain(areas, target, num_components, K,
+                                    min_threshold, n_pixels)
+        raise ValueError("unsupported device %s" % areas.device)
+    dev = areas.device
+    n = areas.shape[-1]
+    B = areas.shape[0] if areas.ndim == 2 else 1
+    for t, name in ((areas, "areas"), (target, "target")):
+        if t.dtype is not torch.int32:
+            raise TypeError("%s must be torch.int32, got %s" % (name, t.dtype))
+        if t.get_device() != dev.index:
+            raise ValueError("%s must be on %s, got %s" % (name, dev, t.device))
+        if n > 1 and t.stride(-1) != 1:
+            raise ValueError("%s must hold a frame's bins consecutively"
+                             % name)
+    if target.stride() != areas.stride():
+        raise ValueError("areas and target must have the same strides")
+    _lib.check(num_components, "num_components", torch.int64, dev)
+    n_pixels = n if n_pixels is None else int(n_pixels)
+    frame_stride = areas.stride(0) if areas.ndim == 2 else 0
+    substitute = torch.empty(areas.shape, dtype=torch.int32, device=dev)
+    tie = torch.empty(areas.shape[:-1], dtype=torch.bool, device=dev)
+    _lib.launch("fstt_cca_select", dev, areas.data_ptr(), target.data_ptr(),
+                frame_stride, num_components.data_ptr(),
+                substitute.data_ptr(), tie.data_ptr(), B, n,
+                min(K, n_pixels), int(min_threshold), n_pixels)
+    return substitute, tie

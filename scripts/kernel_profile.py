@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time a launch of the assign kernels (quantized and float), the
 SLIC update sums (plain and masked), the CCA's components, segment sum,
-lookup and orphan chase and the f32 segment sum (with whatever groups its
+lookup and selection (``cca_select_kernel``; an older checkout's orphan
+chase) and the f32 segment sum (with whatever groups its
 pixels), at B=1 and in a stacked batch of four frames, on a CUDA GPU.
 
     python3 scripts/kernel_profile.py [--root DIR]
@@ -31,7 +32,13 @@ first 720p frame at m=4 (every launch listed: ``knn_buckets_kernel``
 beside ``knn_kernel``, or, for a checkout from before them, the
 bucketing's torch ops) and the bucketing alone; the candidate build
 alone at B=1 and B=4 (every launch listed; with the candidate kernel, also
-its plain version on the card); and one steady
+its plain version on the card); the CCA's selection with its orphan chase
+alone (``ops.cca._substitutes``, every launch listed, and host µs a call
+over 20 calls ended by one synchronize) on the tables of the first
+frame, of the four frames stacked, of the first frame made at 1920x1080
+and of two 720p tables with a component a pixel (nc = n: random areas
+in [1, 60] and targets below each entry; every area 1 and each target
+its left neighbour, one chain through the table); and one steady
 ``initialize(); inference(5)`` cycle of ``SimpleCRF(21, 1600)`` over four
 frames with their adjacency graphs (every launch listed).  The frames go
 through the public API and the kernel calls through the pipeline's stages, so
@@ -54,7 +61,8 @@ import numpy as np
 # gives them; "segment_sum_kernel" is both segment sums' kernel, and the
 # name of framed_segment_sum's one-atomic-a-pixel kernel before it)
 WATCH = ("slic_update_kernel", "lab_kernel", "lsc_feat_kernel",
-         "lookup_kernel", "resolve_orphans_kernel", "fsegsum_kernel",
+         "lookup_kernel", "resolve_orphans_kernel", "cca_select_kernel",
+         "fsegsum_kernel",
          "fs_rank", "fs_scan", "fs_scatter", "fs_sum", "RadixSort",
          "radixSort", "searchsorted", "assign_kernel", "cc_init",
          "cc_merge", "cc_local", "cc_seams", "cc_flatten",
@@ -274,6 +282,74 @@ def profile_candidates(frames, K, reps=20):
     return out
 
 
+def select_tables(frames, K):
+    """{case: (areas, target, num_components, threshold)} of the selection
+    (see the module docstring), from SlicAvx2's raw assignments (10
+    iterations, stride 3)."""
+    import torch
+    from chip_smoke import make_frames
+    from fast_slic_tpu_torch import cluster as cl, pipeline
+    from fast_slic_tpu_torch.config import StaticConfig
+    from fast_slic_tpu_torch.ops.cca import cca_parts, framed_cca_parts
+
+    def raw(frame):
+        H, W = frame.shape[:2]
+        cfg = StaticConfig(H=H, W=W, K=K)
+        scal = pipeline.derive_scalars(cfg, 10.0, 0.25)
+        return pipeline.iterate_graph(
+            torch.from_numpy(frame).cuda(),
+            cl.initialize_clusters(frame, K).to_torch("cuda"), cfg, scal,
+            10, 3).raw_assignment, int(scal.thres)
+
+    raws = [raw(f) for f in frames]
+    thres = raws[0][1]
+    out = {"720p B=1": cca_parts(raws[0][0])[1:] + (thres,)}
+    _, areas, target, ncomp = framed_cca_parts(
+        torch.stack([r for r, _ in raws]), K)
+    out["720p B=%d stacked" % len(frames)] = (areas, target, ncomp, thres)
+    raw1080, thres1080 = raw(make_frames(1, 1080, 1920)[0])
+    out["1080p B=1"] = cca_parts(raw1080)[1:] + (thres1080,)
+    n = areas.shape[-1]
+    rng = np.random.default_rng(0)
+    tgt = np.zeros(n, np.int32)
+    tgt[1:] = rng.integers(0, np.arange(1, n))
+    full = torch.tensor(n, dtype=torch.int64, device="cuda")
+    out["720p nc=n random"] = (
+        torch.from_numpy(rng.integers(1, 61, n).astype(np.int32)).cuda(),
+        torch.from_numpy(tgt).cuda(), full, thres)
+    out["720p nc=n chain"] = (
+        torch.ones(n, dtype=torch.int32, device="cuda"),
+        torch.from_numpy(np.maximum(np.arange(n) - 1, 0).astype(
+            np.int32)).cuda(), full, thres)
+    return out
+
+
+def profile_select(frames, K, reps=20):
+    """The CCA's selection alone (``ops.cca._substitutes``) on each table of
+    :func:`select_tables`: ``reps`` calls profiled (every device launch
+    listed), then the host µs of a call over ``reps`` calls ended by one
+    synchronize (the device's pace where a call's device time exceeds its
+    host time)."""
+    import torch
+    from fast_slic_tpu_torch.ops.cca import _substitutes
+    out = {}
+    for name, (areas, target, ncomp, thres) in select_tables(frames,
+                                                              K).items():
+        def run(args=(areas, target, ncomp, K, thres)):
+            for _ in range(reps):
+                _substitutes(*args)
+        run()
+        row = profiled(run, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        row["host_us_a_call"] = (time.perf_counter() - t0) * 1e6 / reps
+        row["components"] = ncomp.tolist()
+        out["selection alone %s, %d calls" % (name, reps)] = row
+    return out
+
+
 def profile_knn(K, reps=20):
     """The KNN alone on the clusters of the first frame of
     chip_smoke.FIXTURE at chip_smoke.CRF_KNN neighbours: ``reps`` calls,
@@ -352,6 +428,7 @@ def main() -> int:
     out.update(profile_candidates(frames, K720))
     out.update(profile_assign_float(frames, K720))
     out.update(profile_segment_sum(frames[0], more[:BATCH], K720))
+    out.update(profile_select(frames, K720))
     if hasattr(kernels, "knn"):  # a checkout from before the KNN has none
         out.update(profile_knn(K720))
         out.update(profile_crf(frames, K720))

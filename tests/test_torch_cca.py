@@ -6,9 +6,14 @@ top-K drops, a checkerboard and area ties at the top-K boundary) the port's
 ``fast_slic_tpu.ops.cca.enforce_connectivity_xla_flagged``; its component
 ids those of the Pallas propagation kernel in interpret mode; its tie
 escalation the labels of the union-find oracle ``enforce_connectivity_np``;
-and its orphan chase (``resolve_orphans_plain``) the JAX package's
+its orphan chase (``resolve_orphans_plain``) the JAX package's
 ``_resolve_orphans`` with gathers, on random orphan DAGs, a 3000-hop chain
-and the flattened tables of three stacked frames.  The sharded CCA's
+and the flattened tables of three stacked frames; its selection with the
+chase (``_substitutes`` on the CPU, the plain version of the card's
+``cca_select``) the host's exact ``substitutes_np`` on tables with no tie
+at the top-K boundary (one frame, stacked frames of their own component
+counts, more pixels than bins), and its tie flag the tie's definition
+where ties are planted.  The sharded CCA's
 region table (``region_table``) and seam step (``seam_min``, with its
 changed flag) must equal a numpy loop over the pixels on random, spiral
 and serpentine maps.  Exact.
@@ -31,12 +36,13 @@ from fast_slic_tpu_torch.config import UNASSIGNED
 from fast_slic_tpu_torch.kernels.cca import (connected_components, lookup,
                                              region_table,
                                              region_table_plain,
-                                             resolve_orphans,
                                              resolve_orphans_plain, seam_min,
                                              seam_min_plain)
-from fast_slic_tpu_torch.ops.cca import (enforce_connectivity_flagged,
+from fast_slic_tpu_torch.ops.cca import (_substitutes,
+                                         enforce_connectivity_flagged,
                                          heap_select_topk,
-                                         selection_rerun_device)
+                                         selection_rerun_device,
+                                         substitutes_np)
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -357,10 +363,6 @@ def test_resolve_orphans_matches_jax(rng, case):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert UNASSIGNED not in got.numpy()
-    # the dispatching wrapper takes the plain version for a CPU tensor
-    np.testing.assert_array_equal(
-        resolve_orphans(torch.from_numpy(sub), torch.from_numpy(target)),
-        got)
 
 
 def _walk_orphans(sub, target):
@@ -389,3 +391,102 @@ def test_heap_select_matches_oracle(rng):
         seq = list(rng.permutation(n))
         K = int(rng.integers(1, n))
         assert heap_select_topk(seq, areas, K) == jax_heap(seq, areas, K)
+
+
+def _select_frame(rng, n, nc, n_pixels, ties):
+    """One frame's component tables with n bins: nc components whose areas
+    lie in [1, n_pixels] -- all distinct (``ties`` False) or drawn from a
+    few values (True) --, targets below their own entry, and garbage in
+    the empty bins."""
+    areas = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+    if ties:
+        areas[:nc] = rng.integers(1, 9, size=nc) * max(1, n_pixels // 9)
+    else:
+        areas[:nc] = rng.choice(np.arange(1, n_pixels + 1), nc,
+                                replace=False)
+    target = rng.integers(-3, 1 << 20, size=n).astype(np.int32)
+    target[0] = 0
+    target[1:nc] = rng.integers(0, np.arange(1, nc))
+    return areas, target
+
+
+# (frames' (bins, components), pixels a frame or None for the bins, K,
+# threshold)
+SELECT_TABLES = {
+    "one_frame": ([(600, 450)], None, 120, 40),
+    "one_frame_few_kept": ([(600, 450)], None, 400, 300),
+    "one_frame_all_kept": ([(300, 300)], None, 80, 0),
+    "stacked_3": ([(500, 480), (500, 7), (500, 260)], None, 90, 30),
+    "sharded": ([(350, 350)], 40000, 100, 9000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SELECT_TABLES))
+def test_plain_selection_matches_substitutes_np(rng, case):
+    """On tables without a tie at the top-K boundary, the plain selection
+    (``_substitutes`` on the CPU) gives the host's exact selection: every
+    component's substitute, 0 in the empty bins, and no tie flag."""
+    frames, n_pixels, K, thres = SELECT_TABLES[case]
+    tabs = [_select_frame(rng, n, nc, n_pixels or n, False)
+            for n, nc in frames]
+    ncs = [nc for _, nc in frames]
+    areas = torch.from_numpy(np.stack([a for a, _ in tabs]))
+    target = torch.from_numpy(np.stack([t for _, t in tabs]))
+    ncomp = torch.tensor(ncs, dtype=torch.int64)
+    if len(frames) == 1:
+        areas, target, ncomp = areas[0], target[0], ncomp[0]
+    sub, tie = _substitutes(areas, target, ncomp, K, thres, n_pixels)
+    assert sub.dtype == torch.int32 and sub.shape == areas.shape
+    assert tie.shape == ncomp.shape and not bool(tie.any())
+    sub = sub.reshape(len(frames), -1).numpy()
+    for f, ((a, t), nc) in enumerate(zip(tabs, ncs)):
+        np.testing.assert_array_equal(sub[f, :nc],
+                                      substitutes_np(a, t, nc, K, thres))
+        assert not sub[f, nc:].any()
+
+
+def _brute_tie(areas, nc, K, thres, n_pixels):
+    """The boundary tie by its definition: more than k = min(K, n_pixels)
+    components pass the threshold, and the k-th and (k+1)-th largest of
+    their areas are equal."""
+    k = min(K, n_pixels)
+    kept = np.sort(areas[:nc][areas[:nc] >= thres])[::-1]
+    return bool(kept.size > k and k > 0 and kept[k - 1] == kept[k])
+
+
+@pytest.mark.parametrize("case", ["planted", "none_at_boundary",
+                                  "exactly_k", "stacked_4", "sharded"])
+def test_plain_tie_flag_matches_brute_force(rng, case):
+    """The plain selection's tie flag is the boundary tie's definition, on
+    tables with ties planted at the boundary and beside it."""
+    n, nc, n_pixels, K, thres = 400, 380, None, 60, 2
+    frames = 1
+    if case == "stacked_4":
+        frames = 4
+    if case == "sharded":
+        n_pixels = 90000
+    tabs = [_select_frame(rng, n, nc, n_pixels or n, True)
+            for _ in range(frames)]
+    for f, (a, _) in enumerate(tabs):
+        if case == "none_at_boundary":
+            # a tie inside the kept set and one outside it, none across
+            a[:nc] = rng.choice(np.arange(1, n + 1), nc, replace=False)
+            order = np.argsort(-a[:nc], kind="stable")
+            a[order[5:9]] = a[order[5]]
+            a[order[K:K + 4]] = a[order[K]]
+        elif case == "exactly_k":
+            a[K:nc] = 1
+        elif f % 2 == 0:
+            order = np.argsort(-a[:nc], kind="stable")
+            a[order[K - 3:K + 3]] = a[order[K - 3]]
+    ncs = [nc] * frames
+    areas = torch.from_numpy(np.stack([a for a, _ in tabs]))
+    target = torch.from_numpy(np.stack([t for _, t in tabs]))
+    ncomp = torch.tensor(ncs, dtype=torch.int64)
+    _, tie = _substitutes(areas, target, ncomp, K, thres, n_pixels)
+    want = [_brute_tie(a, nc, K, thres, n_pixels or n) for a, _ in tabs]
+    assert tie.tolist() == want
+    if case in ("planted", "stacked_4", "sharded"):
+        assert want[0]
+    if case in ("none_at_boundary", "exactly_k"):
+        assert not any(want)

@@ -6,8 +6,14 @@ JAX it runs on its own:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Exact: integer outputs (the orphan chase too, on random orphan DAGs, a
-3000-hop chain, three stacked frames and a real 720p frame's tables; the
+Exact: integer outputs (the CCA's selection and orphan chase too: every
+bin of the substitute table and the tie flags, on random tables with
+boundary ties, fewer, as many and more components over the threshold than
+K, one component, a component a bin, a threshold of 0 and one above every
+area, the row-sharded CCA's tables, four stacked frames of their own
+component counts, targets anywhere below their entry, one chain of 8998
+dropped components and a real 720p frame's tables, alone and stacked; one
+launch a call whatever the frames, and no host sync; the
 components on one label, superpixels across every tile seam, a serpentine,
 1 x n, n x 1 and 33 x 33 maps and the stacked map of four frames; the
 assign on cells without candidates, 4 and 48 slots, K=6000, W=1277, a view
@@ -75,7 +81,7 @@ from fast_slic_tpu_torch.config import UNASSIGNED, RuntimeParams, StaticConfig
 from fast_slic_tpu_torch.kernels import (assign, assign_float, cca, fsegsum,
                                          lab, launch_counts, lsc_feat, segsum)
 from fast_slic_tpu_torch.ops.cca import (cca_parts, leader_ranks,
-                                         orphan_tables, segsum_values)
+                                         segsum_values)
 from fast_slic_tpu_torch.ops.cielab import rgb_to_lab_quantized_np
 from fast_slic_tpu_torch.parallel.batch import BatchedSlic
 
@@ -241,16 +247,6 @@ def test_lookup_kernel_matches_plain(cuda, rng, n):
     _eq(cca.lookup(ids, table), cca.lookup_plain(ids, table))
 
 
-def _orphan_dag(rng, n):
-    """Tables as ops.cca.orphan_tables builds them for one frame."""
-    sub = rng.integers(0, n, size=n).astype(np.int32)
-    sub[rng.random(n) < 0.6] = UNASSIGNED
-    sub[0] = 0
-    target = np.zeros(n, np.int32)
-    target[1:] = rng.integers(0, np.arange(1, n))
-    return sub, target
-
-
 def _frame_720p():
     image = np.load(DATA)["image"]
     ys = np.arange(720) * image.shape[0] // 720
@@ -259,8 +255,10 @@ def _frame_720p():
 
 
 def _raw_720p_orphan_tables(dev):
-    """The orphan-chase tables of a real raw assignment: SlicAvx2's loop at
-    720p, K=1600, then the CCA's selection."""
+    """The component tables of a real raw assignment: SlicAvx2's loop at
+    720p, K=1600, then the CCA's components.  Returns (areas int32 [n],
+    orphan target int32 [n], num_components int64, K, the area
+    threshold)."""
     frame = _frame_720p()
     H, W, K = 720, 1280, 1600
     cfg = StaticConfig(H=H, W=W, K=K)
@@ -269,40 +267,177 @@ def _raw_720p_orphan_tables(dev):
                                  tcl.initialize_clusters(frame, K).to_torch(
                                      dev), cfg, scal, 10, 3)
     _, areas, target, ncomp = cca_parts(out.raw_assignment)
-    sub, ptrs, _ = orphan_tables(areas, target, ncomp, K, int(scal.thres))
-    return sub, ptrs
+    return areas, target, ncomp, K, int(scal.thres)
 
 
-@pytest.mark.parametrize("case", ["random", "chain_3000", "stacked_3",
-                                  "unlabelled_loops", "raw_720p"])
-def test_resolve_orphans_kernel_matches_plain(cuda, rng, case):
-    if case == "random":
-        sub, target = _orphan_dag(rng, 70001)
-    elif case == "unlabelled_loops":
-        # dropped entries in loops that reach no label: the walk stops at
-        # its n-hop bound and writes 0, as the plain version does
-        sub, target = _orphan_dag(rng, 3000)
-        loops = rng.choice(np.arange(1, 3000), 200, replace=False)
-        sub[loops] = UNASSIGNED
-        target[loops] = np.roll(loops, 1)
-    elif case == "chain_3000":
-        sub = np.full(3001, UNASSIGNED, np.int32)
-        sub[0] = 7
-        target = np.maximum(np.arange(3001, dtype=np.int32) - 1, 0)
-    elif case == "stacked_3":
-        frames = [_orphan_dag(rng, 4000) for _ in range(3)]
-        sub = np.concatenate([f[0] for f in frames])
-        target = np.concatenate([f[1] + 4000 * i
-                                 for i, f in enumerate(frames)])
+def _select_tables(rng, n, nc, high):
+    """Random component tables of one frame with n bins: areas in [1, high]
+    for the nc components (so ties are many where high is small), targets
+    below their own entry, and garbage in the empty bins, which the
+    selection must not read."""
+    areas = rng.integers(1, high + 1, size=n).astype(np.int32)
+    areas[nc:] = rng.integers(0, 1 << 20, size=n - nc)
+    target = np.zeros(n, np.int32)
+    target[1:] = rng.integers(0, np.arange(1, n))
+    target[nc:] = rng.integers(-5, 1 << 20, size=n - nc)
+    return areas, target
+
+
+def _plant_tie(areas, nc, K, thr):
+    """Give the K-th largest kept area to a few more components, so the
+    top-K boundary ties."""
+    kept = np.flatnonzero(areas[:nc] >= thr)
+    order = kept[np.argsort(-areas[kept], kind="stable")]
+    areas[order[K:K + 5]] = areas[order[K - 1]]
+    return areas
+
+
+def _select_case(rng, case, dev):
+    """(areas, target, num_components, K, threshold, n_pixels, expected
+    tie flags or None) of one case; stacked cases are [B, n] views with a
+    frame stride of two tables, as the per-frame segment sum gives them."""
+    def one(n, nc, high, K, thr, tie=None, n_pixels=None):
+        areas, target = _select_tables(rng, n, nc, high)
+        if tie:
+            areas = _plant_tie(areas, nc, K, thr)
+        return (torch.from_numpy(areas).to(dev),
+                torch.from_numpy(target).to(dev),
+                torch.tensor(nc, dtype=torch.int64, device=dev), K, thr,
+                n_pixels, tie)
+
+    if case == "boundary_ties":
+        return one(20000, 5000, 5000, 1600, 10, tie=True)
+    if case == "kept_below_k":
+        return one(9000, 3000, 40, 1600, 25)       # ~1200 over 25
+    if case == "kept_equal_k":
+        areas, target = _select_tables(rng, 9000, 3000, 500)
+        areas[:3000] = np.where(np.arange(3000) < 1600,
+                                rng.integers(30, 500, 3000), 5)
+        return (torch.from_numpy(areas).to(dev),
+                torch.from_numpy(target).to(dev),
+                torch.tensor(3000, dtype=torch.int64, device=dev), 1600, 30,
+                None, False)
+    if case == "kept_above_k":
+        return one(9000, 6000, 300000, 1600, 10, n_pixels=921600)
+    if case == "nc_1":
+        return one(4096, 1, 4096, 1600, 10)
+    if case == "nc_n":
+        # a component a pixel at 720p: the kernel's most work
+        return one(921600, 921600, 60, 1600, 4)
+    if case == "threshold_0":
+        return one(9000, 3000, 900, 1600, 0)
+    if case == "threshold_above_all":
+        return one(9000, 3000, 900, 1600, 901)
+    if case == "sharded":
+        # the row-sharded CCA's tables: as many bins as components, areas
+        # up to the image's pixel count (above 2^24: three digit passes)
+        return one(2800, 2800, 3840 * 4400, 1600, 3500,
+                   n_pixels=3840 * 4400)
+    if case == "sharded_ties":
+        return one(2800, 2800, 700, 1600, 3, tie=True, n_pixels=3840 * 2160)
+    if case in ("stacked_4", "raw_720p_stacked"):
+        if case == "stacked_4":
+            frames = [_select_tables(rng, 6000, nc, high)
+                      for nc, high in ((4200, 600), (1, 50), (6000, 40),
+                                       (1500, 3000))]
+            frames[0] = (_plant_tie(frames[0][0], 4200, 1600, 5),
+                         frames[0][1])
+            ncs = [4200, 1, 6000, 1500]
+            K, thr = 1600, 5
+        else:
+            areas, target, ncomp, K, thr = _raw_720p_orphan_tables(dev)
+            nc = int(ncomp)
+            a, t = areas.cpu().numpy(), target.cpu().numpy()
+            frames = [(a, t), (_plant_tie(a.copy(), nc, K, thr), t),
+                      (a, t), (a, t)]
+            ncs = [nc, nc, nc // 2, 0]
+        acc = np.stack([np.stack(f) for f in frames])   # [B, 2, n]
+        acc = torch.from_numpy(acc).to(dev)
+        return (acc[:, 0], acc[:, 1],
+                torch.tensor(ncs, dtype=torch.int64, device=dev), K, thr,
+                None, None)
+    if case == "any_targets":
+        # targets anywhere below their own entry: half a few entries back,
+        # so chains of several dropped components run inside a round of the
+        # chase, half uniform, so they reach into earlier rounds
+        areas, target = _select_tables(rng, 12000, 10000, 3000)
+        i = np.arange(1, 10000)
+        near = np.maximum(i - rng.integers(1, 9, size=i.size), 0)
+        target[1:10000] = np.where(rng.random(i.size) < 0.5, near,
+                                   target[1:10000])
+        return (torch.from_numpy(areas).to(dev),
+                torch.from_numpy(target).to(dev),
+                torch.tensor(10000, dtype=torch.int64, device=dev), 1600, 10,
+                None, None)
+    if case == "long_chain":
+        # components 0 and 1 kept (labels 0 and 1), 2..8999 dropped, each
+        # adopting the one before it: one chain of 8998 hops across three
+        # rounds of the chase, 4095 of them inside one round, which only
+        # the pointer jumping ends; every orphan must come out 1
+        n = nc = 9000
+        areas = np.full(n, 2, np.int32)
+        areas[:2] = 5000
+        target = np.maximum(np.arange(n, dtype=np.int32) - 1, 0)
+        return (torch.from_numpy(areas).to(dev),
+                torch.from_numpy(target).to(dev),
+                torch.tensor(nc, dtype=torch.int64, device=dev), 1600, 10,
+                None, False)
     if case == "raw_720p":
-        sub, target = _raw_720p_orphan_tables(cuda)
-        assert bool((sub == UNASSIGNED).any())
-    else:
-        sub = torch.from_numpy(sub).to(cuda)
-        target = torch.from_numpy(target.astype(np.int32)).to(cuda)
-    got = cca.resolve_orphans(sub, target)
-    _eq(got, cca.resolve_orphans_plain(sub, target))
-    assert not bool((got == UNASSIGNED).any())
+        areas, target, ncomp, K, thr = _raw_720p_orphan_tables(dev)
+        return areas, target, ncomp, K, thr, None, None
+    raise KeyError(case)
+
+
+SELECT_CASES = ["boundary_ties", "kept_below_k", "kept_equal_k",
+                "kept_above_k", "nc_1", "nc_n", "threshold_0",
+                "threshold_above_all", "sharded", "sharded_ties",
+                "stacked_4", "any_targets", "long_chain", "raw_720p",
+                "raw_720p_stacked"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_cca_select_kernel_matches_plain(cuda, rng, case):
+    """The substitute table (every bin, the empty ones too) and the tie
+    flags of the kernel equal the plain version's bit for bit."""
+    areas, target, ncomp, K, thr, n_pixels, tie = _select_case(rng, case,
+                                                               cuda)
+    got_sub, got_tie = cca.cca_select(areas, target, ncomp, K, thr, n_pixels)
+    want_sub, want_tie = cca.cca_select_plain(areas.cpu(), target.cpu(),
+                                              ncomp.cpu(), K, thr, n_pixels)
+    _eq(got_sub, want_sub)
+    _eq(got_tie, want_tie)
+    assert got_sub.shape == areas.shape and got_tie.shape == ncomp.shape
+    assert not bool((got_sub == UNASSIGNED).any())
+    if tie is not None:
+        assert bool(want_tie.all()) == tie
+    if case == "stacked_4":
+        assert want_tie.tolist() == [True, False, True, False]
+    if case == "long_chain":
+        assert got_sub[:2].tolist() == [0, 1]
+        assert bool((got_sub[2:] == 1).all())
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_cca_select_is_one_launch_without_host_sync(cuda, B):
+    """One call launches the kernel once, whatever the number of frames,
+    and never waits on the device."""
+    areas, target, ncomp, K, thr = _raw_720p_orphan_tables(cuda)
+    if B > 1:
+        areas, target = (t.expand(B, -1).contiguous() for t in (areas,
+                                                                 target))
+        ncomp = ncomp.expand(B).contiguous()
+    torch.cuda.synchronize()
+    before = launch_counts()["cca_select"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sub, tie = cca.cca_select(areas, target, ncomp, K, thr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert launch_counts()["cca_select"] == before + 1
+    want_sub, want_tie = cca.cca_select_plain(areas.cpu(), target.cpu(),
+                                              ncomp.cpu(), K, thr)
+    _eq(sub, want_sub)
+    _eq(tie, want_tie)
 
 
 def test_slice_on_gpu_matches_cpu(cuda, rng):
