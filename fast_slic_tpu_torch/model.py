@@ -92,6 +92,10 @@ class SlicModel:
         self.last_recorder_report = ""
         # debug_mode: the last iterate's snapshots (utils.recorder.Snapshots)
         self.last_recorder_snapshots = None
+        # preemptive: the last iterate's grid activity, int32 [max_iter, 2]
+        # on the device (row i: clusters active after iteration i's step,
+        # pixels its masked update added; the kept run's), else None
+        self.last_preemptive_activity = None
 
     # -- cluster state accessors (cfast_slic.pyx:45-121) --------------------
 
@@ -184,6 +188,7 @@ class SlicModel:
         self.last_cca_tie = res.cca_tie
         self.last_timing_report = res.timing_json
         self.last_recorder_snapshots = res.snapshots
+        self.last_preemptive_activity = res.preemptive_activity
         self._recorder_report = None
         return res.labels
 

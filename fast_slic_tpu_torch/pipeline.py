@@ -55,6 +55,8 @@ class IterateOut(NamedTuple):
     raw_assignment: torch.Tensor  # pre-CCA assignment (int32, 0xFFFF ok)
     cca_tie: torch.Tensor         # bool: top-K boundary tie, escalate
     cand_overflow: torch.Tensor   # bool: re-run with more cand_slots
+    # preemptive: int32 [max_iter, 2] (stage_loop's ``activity``), else None
+    preemptive_activity: torch.Tensor = None
 
 
 class DerivedScalars(NamedTuple):
@@ -196,9 +198,11 @@ def _preemptive_step(st: Clusters, old_y, old_x, cfg: StaticConfig,
     """PreemptiveGrid::set_new_clusters (preemptive.h:114-178), for one
     frame (fields [K]) or B frames (fields [B, K]): the clusters of
     :func:`preemptive_update` and their active-pixel mask bool
-    [..., H, W]."""
-    st = preemptive_update(st, old_y, old_x, cfg, l1_thres)
-    return st, preemptive_mask(st, cfg)
+    [..., H, W], each half in a span of its own."""
+    with span("preemptive.cooldown"):
+        st = preemptive_update(st, old_y, old_x, cfg, l1_thres)
+    with span("preemptive.mask"):
+        return st, preemptive_mask(st, cfg)
 
 
 def preemptive_update(st: Clusters, old_y, old_x, cfg: StaticConfig,
@@ -283,9 +287,21 @@ def _no_scope(name):
     return contextlib.nullcontext()
 
 
+def count_activity(activity, steps) -> None:
+    """The preemptive grid's activity of a call, in place on the device
+    (two launches a call, no host sync): row i of int32 [max_iter, 2] the
+    clusters active after iteration i's step and the pixels iteration i's
+    masked update added (its per-cluster counts; the pixels step i - 1's
+    mask passed).  steps: each iteration's is_active and counts, [..., K]
+    int32, in turn."""
+    stacked = torch.stack([t.reshape(-1) for t in steps])
+    torch.sum(stacked.reshape(activity.shape + (-1,)), dim=-1,
+              dtype=torch.int32, out=activity)
+
+
 def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
                scalars: DerivedScalars, max_iter: int, stride: int,
-               timer=None, recorder=None):
+               timer=None, recorder=None, activity=None):
     """max_iter x (assign, update) with row subsampling and a rotating
     remainder (context.cpp:158-175); LSC re-centres its feature centroids
     after each update; the preemptive grid masks the update to its active
@@ -299,7 +315,9 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
     (debug_mode; utils.recorder.Recorder): a snapshot (assignment,
     min_dists, clusters) before the first iteration and after each one;
     each pass's min_dists is a fresh fill that the assign writes on its
-    rows (fast_slic_tpu/pipeline.py:571-580, 1024-1073)."""
+    rows (fast_slic_tpu/pipeline.py:571-580, 1024-1073).  ``activity``
+    (preemptive): an int32 [max_iter, 2] device buffer that
+    :func:`count_activity` fills after the last iteration's step."""
     feats, weights, cent = lsc_state
     dev = planes.device
     scope = _no_scope if timer is None else timer.scope
@@ -310,6 +328,7 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
         pixel_mask = (torch.ones(planes.shape[1:], dtype=torch.bool,
                                  device=dev)
                       if cfg.preemptive else None)
+    steps = []
     min_dists = None
     if recorder is not None:
         standard = cfg.variant == VARIANT_STANDARD
@@ -350,8 +369,12 @@ def stage_loop(planes, st: Clusters, lsc_state, cfg: StaticConfig,
             with span("loop.preemptive"):
                 st, pixel_mask = _preemptive_step(st, old_y, old_x, cfg,
                                                   scalars.l1_thres)
+                if activity is not None:
+                    steps += (st.is_active, acc[0])
         if recorder is not None:
             recorder.snap(i, assignment, min_dists, st)
+    if steps:
+        count_activity(activity, steps)
     return st, assignment, cent, overflow
 
 
@@ -407,17 +430,21 @@ def iterate_from_setup(setup, cfg: StaticConfig, scalars: DerivedScalars,
     sections (:func:`stage_loop`), then ``full_assign`` and
     ``enforce_connectivity``."""
     planes, st, lsc_state = setup
+    activity = (torch.empty((max_iter, 2), dtype=torch.int32,
+                            device=planes.device)
+                if cfg.preemptive else None)
     if profile:
         loop = stage_loop(planes, st, lsc_state, cfg, scalars, max_iter,
-                          stride, timer, recorder)
+                          stride, timer, recorder, activity)
     else:
         with timer.scope("iteration_loop"):
             loop = stage_loop(planes, st, lsc_state, cfg, scalars, max_iter,
-                              stride, recorder=recorder)
+                              stride, recorder=recorder, activity=activity)
     st, assignment, cent, overflow = loop
     with timer.scope("full_assign"):
         st, assignment, min_dists, overflow = stage_full_assign(
             planes, st, lsc_state, cent, assignment, cfg, scalars, overflow)
     with timer.scope("enforce_connectivity"):
         labels, cca_tie = stage_cca(assignment, cfg, scalars)
-    return IterateOut(labels, st, min_dists, assignment, cca_tie, overflow)
+    return IterateOut(labels, st, min_dists, assignment, cca_tie, overflow,
+                      activity)

@@ -107,6 +107,9 @@ class RunResult(NamedTuple):
     cca_tie: bool            # the tie escalation ran
     cand_slots: int          # candidate slots of the run that was kept
     snapshots: Optional[Snapshots] = None  # debug_mode: the recorder's
+    # preemptive: the kept run's int32 [max_iter, 2] activity, on the device
+    # (pipeline.count_activity)
+    preemptive_activity: Optional[torch.Tensor] = None
 
     @property
     def recorder_json(self) -> str:
@@ -180,7 +183,7 @@ def run_iterate(cfg: StaticConfig, image: np.ndarray, clusters: Clusters,
             with timer.scope("recorder"):
                 snapshots = recorder.to_host()
     return RunResult(labels, final, timer.report(), tie, cfg.cand_slots,
-                     snapshots)
+                     snapshots, out.preemptive_activity)
 
 
 def _overflowed(out) -> bool:

@@ -4,7 +4,10 @@ Under ``torch.profiler`` (CPU activity) a public call records its
 ``fstt.`` spans: one entry span a call, one ``iterate`` section, a
 candidate build a loop pass and one for the full assign, each loop span
 inside the ``iteration_loop`` or ``full_assign`` section, none a user
-annotation; the same for ``BatchedSlic`` in stack and map mode, with LSC.
+annotation; the preemptive step's ``preemptive.cooldown`` and
+``preemptive.mask`` inside ``loop.preemptive``, its activity count equal to
+the loop's plain steps' and kept on the device (no host sync); the same
+for ``BatchedSlic`` in stack and map mode, with LSC.
 The timing report's top-level section carries the call's counters (0 on
 the CPU, where nothing crosses to a device), and the launch counts read
 the same counter store.
@@ -89,6 +92,81 @@ def test_constructor_and_preemptive_spans(image):
     assert n["fstt.entry.init"] == 1
     assert n["fstt.loop.preemptive"] == 2 * n["fstt.iteration_loop"]
     assert_loop_spans_nested(spans)
+
+
+def test_preemptive_step_spans_nest_under_loop_preemptive(image):
+    slic = ft.Slic(num_components=K, preemptive=True, device="cpu")
+    spans = spans_of(lambda: slic.iterate(image, MAX_ITER))
+    n = counts(spans)
+    assert n["fstt.loop.preemptive"] == MAX_ITER * n["fstt.iteration_loop"]
+    step = [(e.time_range.start, e.time_range.end) for e in spans
+            if e.name == "fstt.loop.preemptive"]
+    for name in ("fstt.preemptive.cooldown", "fstt.preemptive.mask"):
+        inner = [e for e in spans if e.name == name]
+        assert len(inner) == n["fstt.loop.preemptive"], name
+        for e in inner:
+            assert any(s <= e.time_range.start and e.time_range.end <= t
+                       for s, t in step), name
+
+
+def test_preemptive_activity_is_the_plain_steps_count(image):
+    """``last_preemptive_activity`` of a carried call equals the counts
+    recomputed by running the loop's plain steps from the same state."""
+    from fast_slic_tpu_torch import pipeline
+    from fast_slic_tpu_torch.config import UNASSIGNED
+    from fast_slic_tpu_torch.kernels.segsum import slic_update_masked_plain
+    iters, stride = 10, 3
+    slic = ft.Slic(num_components=K, preemptive=True, device="cpu")
+    slic.iterate(image, iters)
+    model = slic.slic_model
+    H, W = image.shape[:2]
+    cfg = model._static_config(H, W)
+    st = model._clusters.to_torch("cpu")
+    slic.iterate(image, iters)
+    act = model.last_preemptive_activity
+    assert act.dtype == torch.int32 and tuple(act.shape) == (iters, 2)
+
+    scalars = pipeline.derive_scalars(cfg, 10, 0.25, 0.05)
+    planes, st, _ = pipeline.stage_setup(torch.from_numpy(image), st, cfg,
+                                         scalars)
+    assignment = torch.full((H, W), UNASSIGNED, dtype=torch.int32)
+    mask = torch.ones((H, W), dtype=torch.bool)
+    rows = []
+    for i in range(iters):
+        rem = i % stride
+        st = pipeline._clamp_centers(st, cfg)
+        cand, _ = pipeline.build_candidates(st.y, st.x, st.is_active, cfg)
+        pipeline.assign_pass(planes, st, cand, assignment, cfg, scalars,
+                             stride, rem)
+        old_y, old_x = st.y, st.x
+        acc = slic_update_masked_plain(assignment, planes, mask, K, stride,
+                                       rem)
+        st = pipeline.update_apply_means_rows(acc[0], acc[1:], st, cfg)
+        st, mask = pipeline._preemptive_step(st, old_y, old_x, cfg,
+                                             scalars.l1_thres)
+        rows.append([int(st.is_active.sum()), int(acc[0].sum())])
+    assert act.tolist() == rows
+    assert ft.Slic(num_components=K, device="cpu").slic_model \
+        .last_preemptive_activity is None
+
+
+def test_preemptive_call_adds_no_host_sync(image, monkeypatch):
+    """With every transfer counted as if it crossed to a device, a
+    preemptive call's report counts the syncs and downloads of the same
+    call without the grid: its activity stays on the device."""
+    from fast_slic_tpu_torch import cluster, runner
+    from fast_slic_tpu_torch.ops import cca
+    _crossing(monkeypatch, (cluster, runner, cca))
+    reports = {}
+    for pre in (False, True):
+        slic = ft.Slic(num_components=K, preemptive=pre, device="cpu")
+        for _ in range(2):
+            slic.iterate(image, max_iter=10)
+        reports[pre] = json.loads(slic.slic_model.last_timing_report)
+    got, base = reports[True]["counters"], reports[False]["counters"]
+    assert base["host_syncs"] > 0 and base["d2h_bytes"] > 0
+    assert got["host_syncs"] == base["host_syncs"]
+    assert got["d2h_bytes"] == base["d2h_bytes"]
 
 
 @pytest.mark.parametrize("mode,variant", [("stack", "standard"),
@@ -229,9 +307,9 @@ def test_crf_window_call_records_its_spans(image):
                                "d2h_bytes": 0}
 
 
-def _crossing(monkeypatch):
-    """The CRF's and the graph functions' transfers counted as if each
-    crossed to a device."""
+def _crossing(monkeypatch, modules=None):
+    """The transfers of ``modules`` (by default the CRF's and the graph
+    functions') counted as if each crossed to a device."""
     from fast_slic_tpu_torch.models import crf as crf_mod
     from fast_slic_tpu_torch.ops import graph
 
@@ -246,7 +324,7 @@ def _crossing(monkeypatch):
         timing.COUNTS["host_syncs"] += 1
         return t.cpu() if read is None else read(t)
 
-    for mod in (crf_mod, graph):
+    for mod in modules or (crf_mod, graph):
         monkeypatch.setattr(mod, "to_device", to_device)
         monkeypatch.setattr(mod, "to_host", to_host)
 
